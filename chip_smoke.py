@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,25 +7,44 @@ Setup: builds the CUDA kernels from ``inplacemsdradixsort_tpu_torch/csrc``
 and prints the card's name and power limit.
 
 Phase 1 (kernels against their plain versions): records the inputs of
-every ``hist_level`` / ``route_level`` / ``terminal_write`` call during one
-``sort`` of 2^24 uniform uint32 keys, reruns each kernel and its plain
-PyTorch version on those CUDA tensors and requires equality (exact for
-counts and output; through ``canonical_runs`` for route arenas); times
-both with CUDA events.
+the kernel calls of one ``sort`` each of
+- 2^24 uniform uint32 keys (``hist_level``, ``route_level``,
+  ``terminal_write``, one plane),
+- 2^24 (u32 key, u32 rid) pairs, 2^22 (u32 key, u64 rid) and 2^22
+  (u64 key, u64 rid) (``route_level`` and ``terminal_write`` with 2, 3
+  and 4 planes),
+- 2^22 u64 keys with 8 distinct high words, a deep-tier input
+  (``splice_runs``),
+reruns each kernel and its plain PyTorch version on those CUDA tensors
+and requires equality (exact for counts and outputs; through
+``canonical_runs`` for route arenas); times both with CUDA events and
+computes each call's bound: the bytes it must move (each input element
+read once, each output written once) at the H100 SXM's 3.35 TB/s.
 
-Phase 2 (main path): ``api.sort`` on seeded uint32 keys on the card —
-2^28 uniform (two levels, rmax 48, cap_rows 2048), 2^22 uniform (one
-level, rmax 96), 2^24 with 30% 0xFFFFFFFF — each bitwise equal to
-``torch.sort`` and with an equal mod-2^64 checksum; no small-n or
-overflow fallback on the uniform inputs; every kernel launched.  Times
-the port and ``torch.sort`` at 2^28 (median of warm runs, keys/s) and
-each kernel inside one 2^28 sort.
+Phase 2 (main paths, each with the launch counts set to 0 just before it
+and read just after), ``api.sort`` on seeded data on the card, every
+result bitwise equal to a plain ``torch.sort`` reference (keys and rids,
+lexicographic by (key, rid)):
+- keys only: uint32 2^28 uniform (two levels, rmax 48, cap_rows 2048),
+  2^22 uniform (one level, rmax 96), 2^24 with 30% 0xFFFFFFFF; equal
+  mod-2^64 checksums; no small-n or overflow fallback on the uniform
+  inputs;
+- payload: (u32 key, u64 rid) pairs at 2^28 and at 2^30 (2^29 where the
+  2^28 run's peak memory, scaled, does not fit the card), (u64 key, u64
+  rid) at 2^27; no fallback;
+- deep tier: 2^26 u64 keys with 8 distinct high words, and 2^26 (u32
+  key, u32 rid) pairs with half the keys one value; each reports
+  ``FALLBACK_STATS["deep"] >= 1`` and ``["overflow"] == 0``.
+Times the port against what a user would otherwise run (``torch.sort``
+on the keys; stable, plus a gather of the rids), and each kernel inside
+one 2^28 sort, keys only and pairs.
 
-Any failure raises (non-zero exit).  The last two lines are the per-kernel
-JSON record and ``{"ok": true, "device": {...}}``.  Without a CUDA device
-it exits non-zero before printing any result.
+Any failure raises (non-zero exit).  The last two lines are the
+per-kernel JSON record and ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it exits non-zero before printing any result.
 """
 
+import inspect
 import json
 import statistics
 import subprocess
@@ -35,12 +54,26 @@ import time
 import torch
 
 BIAS = -0x80000000
+I64_MIN = -0x8000000000000000
 SEED = 20240
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM at 700 W (NVIDIA data sheet)
 PHASE1_LOGN = 24
 # (label, log2 n, share of 0xFFFFFFFF, two levels, rmax, cap_rows, timed)
 CASES = [("uniform 2^28", 28, 0.0, True, 48, 2048, True),
          ("uniform 2^22", 22, 0.0, False, 96, 1024, False),
          ("maxheavy 2^24", 24, 0.3, True, None, 1024, False)]
+# (label, log2 n, key kind, rid kind)
+PHASE1_PAYLOAD = [("pairs u32+u32 2^24", 24, "u32", "u32"),
+                  ("pairs u32+u64 2^22", 22, "u32", "u64"),
+                  ("u64+u64 2^22", 22, "u64", "u64")]
+# the first is timed kernel by kernel, and its peak memory sizes BIG_PAIRS
+PAYLOAD_CASES = [("pairs u32+u64 2^28", 28, "u32", "u64"),
+                 ("u64+u64 2^27", 27, "u64", "u64")]
+BIG_PAIRS_LOGN = 30                # BASELINE.md's size; 2^29 if it won't fit
+# (label, log2 n, kind): inputs whose buckets no plane-0 bound can shrink
+DEEP_CASES = [("deep u64 few-hi 2^26", 26, "few_hi"),
+              ("deep heavy pairs 2^26", 26, "heavy_pairs")]
+PHASE1_DEEP = ("deep u64 few-hi 2^22", 22, "few_hi")
 KERNELS = {
     # name: (source, the TPU kernel's pallas_call it replaces)
     "hist_level": ("inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
@@ -49,13 +82,23 @@ KERNELS = {
                     "inplacemsdradixsort_tpu/ops/kernels_v4.py:431"),
     "terminal_write": ("inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
                        "inplacemsdradixsort_tpu/ops/kernels_v4.py:765"),
+    "splice_runs": ("inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
+                    "inplacemsdradixsort_tpu/ops/kernels_v4.py:997"),
 }
+LANES = 128
+
+
+# ------------------------------------------------------------- data
+
+def _gen(seed, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
 
 
 def make_keys(n, heavy, seed, dev):
     """Seeded uint32 keys on the card; a ``heavy`` share is 0xFFFFFFFF."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
+    g = _gen(seed, dev)
     u = torch.randint(0, 2**32, (n,), dtype=torch.int64, device=dev,
                       generator=g)
     raw = (u - 2**31).to(torch.int32) ^ BIAS      # raw words as int32
@@ -65,11 +108,100 @@ def make_keys(n, heavy, seed, dev):
     return raw.view(torch.uint32)
 
 
-def torch_sorted(keys):
-    """torch.sort of uint32 keys on the card (as order-preserving int32)."""
-    return (torch.sort(keys.view(torch.int32) ^ BIAS).values ^ BIAS) \
-        .view(torch.uint32)
+def make_u64(n, seed, dev):
+    """Seeded uint64 values on the card (every bit pattern but 2^64-1)."""
+    g = _gen(seed, dev)
+    return torch.randint(I64_MIN, 2**63 - 1, (n,), dtype=torch.int64,
+                         device=dev, generator=g).view(torch.uint64)
 
+
+def make_input(n, key, rid, seed, dev):
+    """(keys, rids or None) of the named kinds: "u32", "u64", "few_hi"
+    (u64 keys with 8 distinct high words) or "heavy_pairs" (u32 keys,
+    half of them 7, with u32 rids)."""
+    if key == "u32":
+        keys = make_keys(n, 0.0, seed, dev)
+    elif key == "u64":
+        keys = make_u64(n, seed, dev)
+    elif key == "few_hi":
+        his = torch.tensor([3, 9, 17, 40, 1000, 2**31, 2**32 - 5, 77],
+                           dtype=torch.int64, device=dev)
+        g = _gen(seed, dev)
+        hi = his[torch.randint(0, 8, (n,), device=dev, generator=g)]
+        lo = torch.randint(0, 2**32, (n,), dtype=torch.int64, device=dev,
+                           generator=g)
+        keys = ((hi << 32) | lo).view(torch.uint64)
+        del hi, lo
+    else:   # heavy_pairs
+        keys = make_keys(n, 0.0, seed, dev)
+        g = _gen(seed + 1, dev)
+        keys.view(torch.int32)[torch.rand(n, device=dev, generator=g)
+                               < 0.5] = 7
+        rid = "u32"
+    rids = None
+    if rid == "u32":
+        rids = make_keys(n, 0.0, seed + 2, dev)
+    elif rid == "u64":
+        rids = make_u64(n, seed + 2, dev)
+    return keys, rids
+
+
+# -------------------------------------------------------- references
+
+def _order_col(x):
+    """A signed tensor with the unsigned order of uint32/uint64 ``x``."""
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32) ^ BIAS
+    return x.view(torch.int64) ^ I64_MIN
+
+
+def torch_reference(keys, rids):
+    """Plain torch.sort reference: keys ascending as unsigned and, with
+    rids, pairs lexicographic by (key, rid), by stable sorts from the rid
+    to the key."""
+    kc = _order_col(keys)
+    if rids is None:
+        out = torch.sort(kc).values
+        return (out ^ (BIAS if keys.dtype == torch.uint32 else I64_MIN))\
+            .view(keys.dtype), None
+    rc = _order_col(rids)
+    perm = torch.sort(rc, stable=True).indices
+    del rc
+    perm = perm[torch.sort(kc[perm], stable=True).indices]
+    del kc
+    return _gather(keys, perm), _gather(rids, perm)
+
+
+def _gather(x, perm):
+    """x[perm] for uint32/uint64 (indexing is not defined on those)."""
+    return _words(x)[perm].view(x.dtype)
+
+
+def library_sort(keys, rids):
+    """What a user would otherwise call: torch.sort of the keys (stable
+    when rids ride along) plus a gather of the rids."""
+    s = torch.sort(_order_col(keys), stable=rids is not None)
+    if rids is None:
+        return s.values
+    return s.values, _gather(rids, s.indices)
+
+
+def _words(x):
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int64)
+
+
+def assert_equal(got, want, label, chunk=1 << 26):
+    """Bitwise equality of two tensors, the reference possibly on the host
+    (compared in chunks on the card)."""
+    assert got.shape == want.shape and got.dtype == want.dtype, \
+        (label, got.shape, want.shape, got.dtype, want.dtype)
+    g, w = _words(got), _words(want)
+    for i in range(0, g.shape[0], chunk):
+        assert torch.equal(g[i:i + chunk], w[i:i + chunk].to(g.device)), \
+            f"{label}: differs from the torch reference in [{i}, {i + chunk})"
+
+
+# ------------------------------------------------------------- timing
 
 def cuda_ms(fn, reps=5):
     """Median milliseconds of ``fn`` on the card (CUDA events), warm."""
@@ -84,6 +216,119 @@ def cuda_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_ms(fns, rounds=2):
+    """Median host-clock ms of each named callable, run in turns
+    (a, b, b, a per round), each call ending synchronised."""
+    times = {name: [] for name in fns}
+    names = list(fns)
+    for _ in range(rounds):
+        for name in names + names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+# ----------------------------------------------------- kernel records
+
+def _clone(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_clone(t) for t in x)
+    return x
+
+
+def record(kv4, wrappers, names, fn):
+    """Run ``fn`` with the wrappers of ``names`` snapshotting their inputs
+    (terminal_write updates its outputs in place); return the calls."""
+    captured = []
+
+    def recorder(name):
+        def rec(*args, **kw):
+            captured.append((name, [_clone(a) for a in args], dict(kw)))
+            return wrappers[name](*args, **kw)
+        return rec
+    for name in names:
+        setattr(kv4, name, recorder(name))
+    try:
+        fn()
+    finally:
+        for name, f in wrappers.items():
+            setattr(kv4, name, f)
+    return captured
+
+
+def named(fn, args, kw):
+    """A wrapper call's arguments by name, defaults included."""
+    bound = inspect.signature(fn).bind(*args, **kw)
+    bound.apply_defaults()
+    return bound.arguments
+
+
+def _live(meta, ntiles, pitch):
+    m = meta[: 3 * ntiles].view(ntiles, 3).long()
+    return int(m[:, 2].clamp(0, pitch * LANES).sum().item())
+
+
+def call_bytes(name, a):
+    """Bytes one call (arguments ``a`` by name) must move: each input
+    element it reads once, each output element it writes once, and its
+    tables."""
+    if name == "hist_level":
+        return 4 * (_live(a["meta"], a["ntiles"], a["pitch"])
+                    + a["ntiles"] * a["rmax"] + 3 * a["ntiles"]
+                    + a["bounds"].numel())
+    if name == "route_level":
+        cnt, ntiles = a["cnt"].long(), a["ntiles"]
+        stored = cnt + (-cnt) % LANES
+        wrote = int(stored[a["dst"] >= 0].sum().item())
+        return 4 * (len(a["srcs"]) * (_live(a["meta"], ntiles, a["pitch"])
+                                      + wrote)
+                    + 3 * ntiles * a["rmax"] + 3 * ntiles
+                    + a["bounds"].numel())
+    bt = a["btbl"].long()
+    if name == "terminal_write":
+        sel = bt[:, 2] > 0
+        if a["class_id"] is not None:
+            sel &= bt[:, 6] == a["class_id"]
+        mode0 = sel & (bt[:, 3] == 0)
+        m = bt[:, 1].clamp(max=a["cap_rows"]) * LANES
+        read = int(m[mode0].sum().item())
+        wrote = int(torch.minimum(bt[:, 2], m)[mode0].sum().item())
+        fill = int(bt[:, 2][sel & (bt[:, 3] != 0)].sum().item())
+        return 4 * (len(a["srcs"]) * (read + wrote) + fill + bt.numel())
+    real = torch.minimum(bt[:, 2], bt[:, 1].clamp(max=a["max_occ"]) * LANES)
+    return 4 * (2 * len(a["srcs"]) * int(real.clamp(min=0).sum().item())
+                + bt.numel())
+
+
+def replay(kv4, wrappers, name, a):
+    """(kernel fn, plain fn, canonical form) of one recorded call."""
+    plain_fn = getattr(kv4, name + "_ref")
+    if name == "terminal_write":         # it writes into ``outs``
+        def kern():
+            return wrappers[name](**dict(a, outs=_clone(a["outs"])))
+
+        def plain():
+            return plain_fn(**dict(a, outs=_clone(a["outs"])))
+        return kern, plain, lambda x: x
+    if name == "route_level":
+        return (lambda: wrappers[name](**a), lambda: plain_fn(**a),
+                lambda x: kv4.canonical_runs(x, a["dst"], a["cnt"],
+                                             a["dst_rows"]))
+    if name == "splice_runs":           # only the covered prefix is defined
+        bt = a["btbl"].long()
+        end = int((bt[:, 5] + torch.minimum(
+            bt[:, 2], bt[:, 1].clamp(max=a["max_occ"]) * LANES)).max().item())
+        return (lambda: wrappers[name](**a), lambda: plain_fn(**a),
+                lambda x: tuple(t[:end] for t in x))
+    return (lambda: (wrappers[name](**a),), lambda: (plain_fn(**a),),
+            lambda x: x)
 
 
 def main():
@@ -103,6 +348,7 @@ def main():
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    total_mem = torch.cuda.mem_get_info(dev)[1]
 
     # ------------------------------------------------------------ build
     t0 = time.perf_counter()
@@ -110,157 +356,227 @@ def main():
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     cfg = SortConfig()
+    wrappers = {name: getattr(kv4, name) for name in KERNELS}
 
     # ----------------------------------- phase 1: kernels vs plain versions
-    wrappers = {name: getattr(kv4, name) for name in KERNELS}
-    captured = []
-
-    def recorder(name):
-        def rec(*args, **kw):
-            # snapshot the inputs (terminal_write updates ``out`` in place)
-            captured.append((name, [a.clone() if torch.is_tensor(a) else a
-                                    for a in args], dict(kw)))
-            return wrappers[name](*args, **kw)
-        return rec
-
+    calls = []          # (source label, name, args, kw)
     x24 = make_keys(1 << PHASE1_LOGN, 0.0, SEED, dev)
-    for name in KERNELS:
-        setattr(kv4, name, recorder(name))
-    try:
-        res = sort(x24, config=cfg)
-    finally:
-        for name, fn in wrappers.items():
-            setattr(kv4, name, fn)
-    assert torch.equal(res.keys.view(torch.int32),
-                       torch_sorted(x24).view(torch.int32)), "phase 1 sort"
-    assert {c[0] for c in captured} == set(KERNELS), "a kernel was not called"
+    for c in record(kv4, wrappers, ["hist_level", "route_level",
+                                    "terminal_write"],
+                    lambda: sort(x24, config=cfg)):
+        calls.append(("keys u32 2^24",) + c)
+    del x24
+    for label, logn, kk, rk in PHASE1_PAYLOAD:
+        keys, rids = make_input(1 << logn, kk, rk, SEED + logn, dev)
+        for c in record(kv4, wrappers, ["route_level", "terminal_write"],
+                        lambda: sort(keys, rids, config=cfg)):
+            calls.append((label,) + c)
+        del keys, rids
+    label, logn, kind = PHASE1_DEEP
+    keys, _ = make_input(1 << logn, kind, None, SEED + 1, dev)
+    engine_v4.reset_fallback_stats()
+    for c in record(kv4, wrappers, ["splice_runs"],
+                    lambda: sort(keys, config=cfg)):
+        calls.append((label,) + c)
+    assert engine_v4.FALLBACK_STATS["deep"] >= 1, engine_v4.FALLBACK_STATS
+    del keys
+    assert {c[1] for c in calls} == set(KERNELS), "a kernel was not called"
 
-    record = {name: dict(ms=0.0, plain_ms=0.0, max_abs_err=0)
-              for name in KERNELS}
-    for name, args, kw in captured:
-        if name == "terminal_write":
-            src, btbl, out, cap = args
-
-            def kern(out=out):
-                return wrappers[name](src, btbl, out.clone(), cap, **kw)
-
-            def plain(out=out):
-                return kv4.terminal_write_ref(src, btbl, out.clone(), cap,
-                                              **kw)
-            got, want = kern(), plain()
-        elif name == "route_level":
-            def kern():
-                return wrappers[name](*args, **kw)
-
-            def plain():
-                return kv4.route_level_ref(*args, **kw)
-            dst, cnt, rows = args[4], args[3], args[6]
-            got = kv4.canonical_runs(kern(), dst, cnt, rows)
-            want = kv4.canonical_runs(plain(), dst, cnt, rows)
-        else:
-            def kern():
-                return wrappers[name](*args, **kw)
-
-            def plain():
-                return kv4.hist_level_ref(*args, **kw)
-            got, want = kern(), plain()
+    per_kernel = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                             max_abs_err=0) for name in KERNELS}
+    for src_label, name, args, kw in calls:
+        a = named(wrappers[name], args, kw)
+        kern, plain, canon = replay(kv4, wrappers, name, a)
+        got, want = canon(kern()), canon(plain())
         torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max().item())
-        r = record[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        err = max(int((g.long() - w.long()).abs().max().item())
+                  if g.numel() else 0 for g, w in zip(got, want))
         ms, pms = cuda_ms(kern), cuda_ms(plain)
+        bound = call_bytes(name, a) / HBM_BYTES_PER_S * 1e3
+        r = per_kernel[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += pms
-        print(f"phase1 {name} {kw}: max_abs_err {err} kernel {ms:.3f} ms "
-              f"plain {pms:.3f} ms")
+        r["bound_ms"] += bound
+        planes = 1 if name == "hist_level" else len(a["srcs"])
+        print(f"phase1 [{src_label}] {name} planes={planes} {kw}: "
+              f"max_abs_err {err} kernel {ms:.3f} ms plain {pms:.3f} ms "
+              f"bound {bound:.4f} ms")
         assert err == 0, f"{name} disagrees with its plain version"
-    del captured, x24, res
+    del calls
 
-    # ------------------------------------------------ phase 2: main path
-    kv4.reset_launches()
-    engine_v4.reset_fallback_stats()
-    for label, logn, heavy, two_level, rmax, cap_rows, timed in CASES:
+    # ------------------------------------------------ phase 2: main paths
+    launches = dict.fromkeys(KERNELS, 0)
+    kernel_ms = {}
+
+    def timed(name):
+        def run(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = wrappers[name](*args, **kw)
+            b.record()
+            kernel_ms.setdefault(name, []).append((a, b))
+            return out
+        return run
+
+    def breakdown(label, fn):
+        """Each kernel's CUDA-event time inside one run of ``fn``."""
+        kernel_ms.clear()
+        for name in KERNELS:
+            setattr(kv4, name, timed(name))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        finally:
+            for name, f in wrappers.items():
+                setattr(kv4, name, f)
+        for name, evs in kernel_ms.items():
+            each = [a.elapsed_time(b) for a, b in evs]
+            print(f"phase2 {label} {name}: {len(each)} calls, "
+                  f"{sum(each):.3f} ms "
+                  f"({', '.join(f'{e:.3f}' for e in each)})")
+        print(f"phase2 {label} one sort: {total * 1e3:.3f} ms")
+
+    def path(label, names):
+        """Open a main path: counts to 0; returns the closing check."""
+        kv4.reset_launches()
+        engine_v4.reset_fallback_stats()
+
+        def close():
+            got = dict(kv4.LAUNCHES)
+            print(f"phase2 {label} launches: {got}")
+            for name in names:
+                assert got[name] > 0, f"{name} was not launched on {label}"
+            for name in KERNELS:
+                launches[name] += got[name]
+        return close
+
+    def run_case(label, keys, rids, timed_runs, expect):
+        """Sort on the card, compare with the torch reference (computed
+        first and kept on the host), report fallbacks and times."""
+        ref = torch_reference(keys, rids)
+        ref = tuple(None if t is None else t.cpu() for t in ref)
+        torch.cuda.synchronize()
+        before = dict(engine_v4.FALLBACK_STATS)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = sort(keys, rids, config=cfg)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        stats = {k: engine_v4.FALLBACK_STATS[k] - before[k] for k in before}
+        assert_equal(res.keys, ref[0], label)
+        if rids is not None:
+            assert_equal(res.rids, ref[1], label + " rids")
+        else:
+            assert checksum(res.keys) == checksum(keys), label
+        del res, ref
+        expect(stats)
+        print(f"phase2 {label}: bitwise equal to the torch reference, "
+              f"fallbacks {stats}, port peak {peak / 2**30:.3f} GiB over "
+              f"its inputs")
+        if timed_runs:
+            t = host_ms({"port": lambda: sort(keys, rids, config=cfg),
+                         "torch": lambda: library_sort(keys, rids)},
+                        rounds=timed_runs)
+            n = keys.shape[0]
+            what = "torch.sort" if rids is None else \
+                "torch.sort(stable) + rid gather"
+            print(f"phase2 {label} port: median {t['port']:.3f} ms "
+                  f"({n / t['port'] * 1e3:.4e} keys/s); {what}: median "
+                  f"{t['torch']:.3f} ms ({n / t['torch'] * 1e3:.4e} "
+                  f"keys/s); {2 * timed_runs} runs each, alternated")
+        return peak
+
+    def no_fallback(label):
+        def expect(stats):
+            assert stats["small_n"] == 0 and stats["overflow"] == 0 \
+                and stats["deep"] == 0, (label, stats)
+        return expect
+
+    # ---- keys only (uint32)
+    close = path("keys-only", ["hist_level", "route_level",
+                               "terminal_write"])
+    for label, logn, heavy, two_level, rmax, cap_rows, timed_ in CASES:
         n = 1 << logn
         g = engine_v4._dev_geometry(n, 1, cfg)
         assert g.two_level == two_level, (label, g)
         assert rmax is None or g.rmax == rmax, (label, g)
         assert g.cap_rows == cap_rows, (label, g)
         x = make_keys(n, heavy, SEED + logn, dev)
-        before = dict(engine_v4.FALLBACK_STATS)
-        res = sort(x, config=cfg)
-        stats = {k: engine_v4.FALLBACK_STATS[k] - before[k]
-                 for k in before}
-        want = torch_sorted(x)
-        assert torch.equal(res.keys.view(torch.int32),
-                           want.view(torch.int32)), label
-        assert checksum(res.keys) == checksum(x), label
-        if not heavy:
-            assert stats["small_n"] == 0 and stats["overflow"] == 0, \
-                (label, stats)
-        print(f"phase2 {label}: bitwise equal to torch.sort, checksum "
-              f"{checksum(res.keys)}, rmax {g.rmax} two_level "
-              f"{g.two_level} cap_rows {g.cap_rows}, fallbacks {stats}")
-        if timed:
-            port_s, torch_s = [], []
-            for order in ("port", "torch", "torch", "port") * 2:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                if order == "port":
-                    sort(x, config=cfg)
-                else:
-                    torch_sorted(x)
-                torch.cuda.synchronize()
-                (port_s if order == "port" else torch_s).append(
-                    time.perf_counter() - t0)
-            pm, tm = statistics.median(port_s), statistics.median(torch_s)
-            print(f"phase2 {label} port: median {pm * 1e3:.3f} ms "
-                  f"({n / pm:.4e} keys/s) over {len(port_s)} runs; "
-                  f"torch.sort: median {tm * 1e3:.3f} ms "
-                  f"({n / tm:.4e} keys/s)")
+        run_case(label, x, None, 2 if timed_ else 0,
+                 (lambda s: None) if heavy else no_fallback(label))
+        print(f"phase2 {label}: checksum {checksum(x)}, rmax {g.rmax} "
+              f"two_level {g.two_level} cap_rows {g.cap_rows}")
+        if timed_:
             res = sort(x, config=cfg, timing=True)
             print(f"phase2 {label} phases (host clock, synchronised):")
             print(res.pretty_times())
-            kernel_ms = {}
+            del res
+            breakdown(label, lambda: sort(x, config=cfg))
+        del x
+    close()
 
-            def timed(name):
-                def run(*args, **kw):
-                    a = torch.cuda.Event(enable_timing=True)
-                    b = torch.cuda.Event(enable_timing=True)
-                    a.record()
-                    out = wrappers[name](*args, **kw)
-                    b.record()
-                    kernel_ms.setdefault(name, []).append((a, b))
-                    return out
-                return run
-            for name in KERNELS:
-                setattr(kv4, name, timed(name))
-            try:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                sort(x, config=cfg)
-                torch.cuda.synchronize()
-                total = time.perf_counter() - t0
-            finally:
-                for name, fn in wrappers.items():
-                    setattr(kv4, name, fn)
-            for name, evs in kernel_ms.items():
-                each = [a.elapsed_time(b) for a, b in evs]
-                print(f"phase2 {label} {name}: {len(each)} calls, "
-                      f"{sum(each):.3f} ms ({', '.join(f'{e:.3f}' for e in each)})")
-            print(f"phase2 {label} one sort: {total * 1e3:.3f} ms")
-        del x, want, res
+    # ---- payload planes
+    close = path("payload", ["hist_level", "route_level", "terminal_write"])
+    peaks = []
+    for i, (label, logn, kk, rk) in enumerate(PAYLOAD_CASES):
+        keys, rids = make_input(1 << logn, kk, rk, SEED + logn, dev)
+        peaks.append(run_case(label, keys, rids, 2, no_fallback(label)))
+        if i == 0:
+            breakdown(label, lambda: sort(keys, rids, config=cfg))
+        del keys, rids
+    # BASELINE's 2^30 rows if (a) the first pairs run's peak, scaled to
+    # 2^30, and the 2^30 inputs (4 B key + 8 B rid a row) fit with 4 GiB
+    # spare, and (b) v4's two-level topology holds the buckets that size
+    # asks for (at most rmax^2 of them, each up to the XL class); else 2^29
+    big, logn0 = BIG_PAIRS_LOGN, PAYLOAD_CASES[0][1]
+    need = (peaks[0] << (big - logn0)) + (12 << big) + (4 << 30)
+    g = engine_v4._dev_geometry(1 << big, 3, cfg)
+    buckets = int(g.nb_want * 1.3) + g.nrad + 2    # the planner's estimate
+    most = g.rmax ** 2 if g.two_level else g.rmax
+    print(f"phase2 pairs at 2^{big}: memory: the 2^{logn0} port peak "
+          f"{peaks[0] / 2**30:.3f} GiB scaled + {(12 << big) / 2**30:.0f} "
+          f"GiB of inputs + 4 GiB = {need / 2**30:.3f} GiB against the "
+          f"card's {total_mem / 2**30:.3f} GiB; topology: ~{buckets} "
+          f"buckets of ~{int(g.cap_rows * 128 * 0.8)} tuples wanted, "
+          f"{most} possible")
+    if need > total_mem or buckets > most:
+        big -= 1
+        print(f"phase2 pairs: 2^{BIG_PAIRS_LOGN} does not fit v4 on this "
+              f"card (the reference switches to the in-place v5 there, "
+              f"not ported: ROADMAP A10); running 2^{big}")
+    label = f"pairs u32+u64 2^{big}"
+    keys, rids = make_input(1 << big, "u32", "u64", SEED + big, dev)
+    run_case(label, keys, rids, 1, no_fallback(label))
+    del keys, rids
+    close()
 
-    launches = dict(kv4.LAUNCHES)
-    print(f"phase2 launches: {launches}")
-    for name in KERNELS:
-        assert launches[name] > 0, f"{name} was not launched on the main path"
+    # ---- deep tier
+    close = path("deep", list(KERNELS))
 
+    def deep_expect(label):
+        def expect(stats):
+            assert stats["deep"] >= 1 and stats["overflow"] == 0, \
+                (label, stats)
+        return expect
+    for label, logn, kind in DEEP_CASES:
+        keys, rids = make_input(1 << logn, kind, None, SEED + 3 + logn, dev)
+        run_case(label, keys, rids, 1, deep_expect(label))
+        del keys, rids
+    close()
+
+    print(f"phase2 launches (all paths): {launches}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
-         "max_abs_err": record[name]["max_abs_err"],
-         "ms": round(record[name]["ms"], 4),
-         "plain_ms": round(record[name]["plain_ms"], 4)}
+         "max_abs_err": per_kernel[name]["max_abs_err"],
+         "ms": round(per_kernel[name]["ms"], 4),
+         "plain_ms": round(per_kernel[name]["plain_ms"], 4),
+         "bound_ms": round(per_kernel[name]["bound_ms"], 4),
+         "bound_by": "bytes", "library_ms": None}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

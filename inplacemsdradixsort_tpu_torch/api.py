@@ -3,12 +3,16 @@
 ``inplacemsdradixsort_tpu/api.py``):
 
     sort(keys, rids=None, config=..., timing=False) -> SortResult
+    sort_with_indices(keys, config=...)             -> (keys, permutation)
     check(keys, rids=None, same=False)              -> checksum
     mamalloc(n, dtype, fudge, device)               -> padded buffer
 
-This slice sorts uint32 keys only.  Payload rids, the i32/f32/u64/i64
-key types and ``sort_with_indices`` raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+Keys are uint32, int32, float32, uint64 or int64; rids any integer type,
+64-bit rids included.  Both are split into uint32 planes (int32/float32
+through order-preserving codecs, 64-bit values as (hi, lo) words), which
+the v4 engine sorts lexicographically by (key, *rid words), and joined
+back.  Data that is not a tensor goes to the CUDA device; a CPU tensor
+stays on the CPU, where ``engine="auto"`` runs plain ``torch.sort``.
 """
 
 from __future__ import annotations
@@ -20,12 +24,18 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, SortConfig
-from .ops import engine_v4
+from .ops import engine_v4, keycodec
 from .ops.kernels_v4 import LANES
 from .utils.checking import check  # re-exported
 from .utils.timing import PhaseTimer
 
 __all__ = ["SortResult", "sort", "sort_with_indices", "check", "mamalloc"]
+
+KEY_DTYPES = (torch.uint32, torch.int32, torch.float32, torch.uint64,
+              torch.int64)
+# v4's out-of-place working set, in bytes per element per uint32 plane
+# (input + two packed arenas + output; ``inplacemsdradixsort_tpu/api.py``)
+V4_BYTES_PER_PLANE_ELEM = 4.3 * 4
 
 
 @dataclasses.dataclass
@@ -44,12 +54,31 @@ class SortResult:
         return "\n".join(out)
 
 
+def _card() -> torch.device:
+    """The default device: the CUDA card, as the reference's arrays live
+    on the accelerator.  Raises without one (pass a CPU tensor to sort on
+    the CPU)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port places data that is not a tensor on "
+            "the card; pass a CPU tensor (or device='cpu') to run on the "
+            "CPU")
+    return torch.device("cuda")
+
+
+def _as_tensor(x, device=None) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x
+    return torch.as_tensor(x, device=device or _card())
+
+
 def mamalloc(n: int, dtype=torch.uint32, fudge: float = 1.0,
              device=None) -> torch.Tensor:
-    """Zeroed, lane-aligned buffer (reference mamalloc analog,
-    msb_64.c:111-115: 64-byte alignment becomes 128-lane rows)."""
+    """Zeroed, lane-aligned buffer on the card unless ``device`` says
+    otherwise (reference mamalloc analog, msb_64.c:111-115: 64-byte
+    alignment becomes 128-lane rows)."""
     cap = int(np.ceil(n * fudge / LANES)) * LANES
-    return torch.zeros(cap, dtype=dtype, device=device)
+    return torch.zeros(cap, dtype=dtype, device=device or _card())
 
 
 def _select_engine(cfg: SortConfig, keys: torch.Tensor) -> str:
@@ -60,45 +89,137 @@ def _select_engine(cfg: SortConfig, keys: torch.Tensor) -> str:
         return "v4" if keys.is_cuda else "torch"
     if engine not in ("v4", "torch"):
         raise NotImplementedError(
-            f"engine {engine!r} is not ported yet (ROADMAP.md A7-A13); "
+            f"engine {engine!r} is not ported yet (ROADMAP.md A8-A13); "
             "the port has 'auto', 'v4' and 'torch'")
     return engine
 
 
+def _check_fits(keys: torch.Tensor, nplanes: int) -> None:
+    """The size switch of the reference's ``engine="auto"``: where v4's
+    working set exceeds 75% of the card's memory, the in-place v5 engine
+    is the one that still fits.  v5 is not ported, so say so instead of
+    running out of memory."""
+    total = torch.cuda.mem_get_info(keys.device)[1]
+    need = V4_BYTES_PER_PLANE_ELEM * nplanes * keys.shape[0]
+    if need > 0.75 * total:
+        raise NotImplementedError(
+            f"{keys.shape[0]} elements x {nplanes} planes need ~{need:.3g} B "
+            f"in v4, over 75% of the card's {total} B: the in-place v5 "
+            "engine that fits them is not ported yet (ROADMAP.md A10)")
+
+
+def _key_planes(keys: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Raw uint32 words (as int32) whose unsigned lexicographic order is
+    the order of ``keys``."""
+    if keys.dtype == torch.uint32:
+        words = (keys,)
+    elif keys.dtype == torch.int32:
+        words = (keycodec.encode_i32(keys),)
+    elif keys.dtype == torch.float32:
+        words = (keycodec.encode_f32(keys),)
+    elif keys.dtype == torch.uint64:
+        words = keycodec.split_u64(keys)
+    elif keys.dtype == torch.int64:
+        words = keycodec.encode_i64(keys)
+    else:
+        raise TypeError(f"unsupported key dtype {keys.dtype}; the port "
+                        f"sorts {', '.join(map(str, KEY_DTYPES))}")
+    return tuple(w.view(torch.int32) for w in words)
+
+
+def _join_keys(planes, dtype) -> torch.Tensor:
+    if dtype == torch.uint32:
+        return planes[0].view(torch.uint32)
+    if dtype == torch.int32:
+        return keycodec.decode_i32(planes[0])
+    if dtype == torch.float32:
+        return keycodec.decode_f32(planes[0])
+    if dtype == torch.uint64:
+        return keycodec.join_u64(*planes)
+    return keycodec.decode_i64(*planes)
+
+
+def _rid_planes(rids: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Payload planes for an integer rid tensor of any width: one uint32
+    word, or (hi, lo) for 64-bit rids — values >= 2^32 round-trip
+    exactly (the reference's 64-bit rids, msb_64.h:37)."""
+    if rids.dtype.is_floating_point or rids.dtype.is_complex \
+            or rids.dtype == torch.bool:
+        raise TypeError(f"rids must be integers, got {rids.dtype}")
+    if rids.element_size() == 8:
+        return tuple(w.view(torch.int32) for w in keycodec.split_u64(rids))
+    if rids.element_size() == 4:
+        return (rids.contiguous().view(torch.int32),)
+    return (rids.to(torch.int32),)
+
+
+def _join_rids(planes, dtype) -> torch.Tensor:
+    if len(planes) == 2:
+        return keycodec.join_u64(*planes).view(dtype)
+    if torch.empty((), dtype=dtype).element_size() == 4:
+        return planes[0].view(dtype)
+    return planes[0].to(dtype)
+
+
 def sort(
     keys,
-    rids: Optional[torch.Tensor] = None,
+    rids=None,
     config: SortConfig = DEFAULT_CONFIG,
     timing: bool = False,
 ) -> SortResult:
-    """Sort 1-D uint32 ``keys`` on the tensor's device.
+    """Sort 1-D ``keys`` (optionally permuting ``rids`` along) on their
+    device: the card, unless ``keys`` is a CPU tensor.
 
-    ``timing=True`` synchronises at phase edges and fills the 10-row report
-    (msb_64.c:2384-2412 contract)."""
-    keys = torch.as_tensor(keys)
-    if rids is not None:
-        raise NotImplementedError(
-            "payload rids are not ported yet (ROADMAP.md A5)")
-    if keys.dtype != torch.uint32:
-        raise NotImplementedError(
-            f"{keys.dtype} keys are not ported yet: the slice sorts "
-            "torch.uint32 (keycodecs and u64 keys: ROADMAP.md A5)")
+    - dtype uint32, int32, float32, uint64 or int64 (float32 in IEEE
+      total order: -0 < +0, NaNs by payload above +inf);
+    - ``rids`` any integer payload of the same length; ties of equal keys
+      are ordered by rid value (a stable sort when rids are the indices,
+      as in ``sort_with_indices``);
+    - ``timing=True`` synchronises at phase edges and fills the 10-row
+      report (msb_64.c:2384-2412 contract).
+    """
+    keys = _as_tensor(keys)
     if keys.dim() != 1:
         raise ValueError(f"keys must be 1-D, got shape {tuple(keys.shape)}")
+    if rids is not None:
+        rids = _as_tensor(rids, keys.device)
+        if rids.shape != keys.shape or rids.device != keys.device:
+            raise ValueError(
+                f"rids {tuple(rids.shape)} on {rids.device} do not match "
+                f"keys {tuple(keys.shape)} on {keys.device}")
+    kplanes = _key_planes(keys.contiguous())
+    vplanes = _rid_planes(rids) if rids is not None else ()
     timer = PhaseTimer(enabled=timing)
     engine = _select_engine(config, keys)
-    raw = keys.contiguous().view(torch.int32)
+    if engine == "v4" and config.engine == "auto":
+        _check_fits(keys, len(kplanes) + len(vplanes))
     if engine == "v4":
-        out, _ = engine_v4.sort_v4(raw, (), config, timer=timer)
+        outs, vouts = engine_v4.sort_v4(kplanes[0], kplanes[1:] + vplanes,
+                                        config, timer=timer)
     else:
         with timer.phase("local_sort"):
-            out = engine_v4._torch_fallback(raw)
-            timer.sync(out)
-    return SortResult(keys=out.view(torch.uint32), rids=None,
-                      times=timer.report(), synced=engine == "v4")
+            outs, vouts = engine_v4._torch_fallback(
+                kplanes[0], kplanes[1:] + vplanes)
+            timer.sync(outs)
+    nk = len(kplanes)
+    out_k = _join_keys((outs,) + vouts[: nk - 1], keys.dtype)
+    out_r = (_join_rids(vouts[nk - 1:], rids.dtype)
+             if rids is not None else None)
+    return SortResult(keys=out_k, rids=out_r, times=timer.report(),
+                      synced=engine == "v4")
 
 
-def sort_with_indices(keys, config: SortConfig = DEFAULT_CONFIG):
-    """Sorted keys + the stable sorting permutation — not ported yet."""
-    raise NotImplementedError(
-        "sort_with_indices needs payload planes (ROADMAP.md A5)")
+def sort_with_indices(keys, config: SortConfig = DEFAULT_CONFIG
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sorted keys + the stable sorting permutation (int64 row ids).
+
+    The reference carries explicit rowid payloads; the identity payload
+    here mirrors its benchmark setup, where rids start as a permutation
+    to be dragged along.  Below 2^31 rows the ids ride as one uint32
+    plane."""
+    keys = _as_tensor(keys)
+    n = keys.shape[0]
+    idx = torch.arange(n, device=keys.device,
+                       dtype=torch.int32 if n < 2**31 else torch.int64)
+    res = sort(keys, idx, config=config)
+    return res.keys, res.rids.long()

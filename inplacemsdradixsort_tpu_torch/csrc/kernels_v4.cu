@@ -1,4 +1,6 @@
-// Hand-written Hopper (sm_90a) kernels of the v4 engine's main path.
+// Hand-written Hopper (sm_90a) kernels of the v4 engine: the partition
+// level (hist_level, route_level), the terminal sort (terminal_write) and
+// the run splice of the deep tier (splice_runs).
 //
 // Built by ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -9,6 +11,10 @@
 //
 // Keys are int32 in the sign-biased encoding (biased = raw ^ 0x80000000,
 // so signed order = unsigned order of the raw words); SENT = biased +inf.
+// A sort carries 1-4 planes of equal length (key, then payload words);
+// plane 0 classifies, tuples order lexicographically over planes 0..nlex.
+// The multi-plane kernels are templates on the plane count NP, so the
+// keys-only launch does no per-plane work.
 // The Python wrappers and their plain PyTorch versions live in
 // ops/kernels_v4.py; the per-kernel notes there say which TPU kernel each
 // replaces and what bounds it on the H100.
@@ -23,7 +29,29 @@ constexpr int32_t BIAS = INT32_MIN;
 constexpr int32_t SENT = INT32_MAX;
 constexpr int LEVEL_THREADS = 512;   // hist_level / route_level block
 constexpr int TERM_THREADS = 1024;   // terminal_write block
-constexpr int TILE = 16384;          // terminal shared-memory tile (64 KiB)
+constexpr int SPLICE_THREADS = 256;  // splice_runs block
+constexpr int MAX_PLANES = 4;
+
+// terminal shared-memory tile in tuples: NP * 4 bytes * tile <= 96 KiB,
+// so two blocks of 1024 threads fit an SM (227 KB a block at most)
+template <int NP>
+__host__ __device__ constexpr int term_tile() {
+  return NP == 1 ? 16384 : (NP <= 3 ? 8192 : 4096);
+}
+
+// The planes of one array, as NP pointers (sources are never written
+// through them).
+template <int NP>
+struct Planes {
+  int32_t* p[NP];
+};
+
+template <int NP>
+Planes<NP> planes_of(void* const* ptrs) {
+  Planes<NP> v;
+  for (int q = 0; q < NP; ++q) v.p[q] = (int32_t*)ptrs[q];
+  return v;
+}
 
 // First d in [0, rmax) with k <= b[d] for non-decreasing inclusive upper
 // bounds b; rmax when k exceeds every bound.
@@ -88,18 +116,20 @@ __global__ void __launch_bounds__(LEVEL_THREADS) hist_level_kernel(
 
 // ----------------------------------------------------------- route_level
 // One block per tile: each live element claims the next slot of its
-// range's run with a shared-memory atomic and is stored at
-// dst[t, d] * 128 + slot (64-bit addresses).  The run's tail gets
-// (-cnt) % 128 copies of padv[t, d], so the run fills exactly
-// ceil(cnt / 128) rows.  Every store is element-exact: blocks run in no
-// order, so nothing may be written outside the block's own runs.
-// dst < 0 marks a dropped (value-filled) range: nothing is stored.
+// range's run (plane 0 classifies) with a shared-memory atomic and is
+// stored at dst[t, d] * 128 + slot in every plane (64-bit addresses).
+// The run's tail gets (-cnt) % 128 pad tuples (padv[t, d], SENT, ...), so
+// the run fills exactly ceil(cnt / 128) rows.  Every store is
+// element-exact: blocks run in no order, so nothing may be written
+// outside the block's own runs.  dst < 0 marks a dropped (value-filled)
+// range: nothing is stored.
+template <int NP>
 __global__ void __launch_bounds__(LEVEL_THREADS) route_level_kernel(
-    const int32_t* __restrict__ src, long long src_len,
+    Planes<NP> src, long long src_len,
     const int32_t* __restrict__ meta, const int32_t* __restrict__ bounds,
     const int32_t* __restrict__ cnt, const int32_t* __restrict__ dst,
-    const int32_t* __restrict__ padv, int32_t* __restrict__ out,
-    long long out_len, int pitch, int rmax, int32_t xor_in) {
+    const int32_t* __restrict__ padv, Planes<NP> out, long long out_len,
+    int pitch, int rmax, int32_t xor_in) {
   extern __shared__ long long smem64[];
   long long* sdst = smem64;                          // rmax run bases
   int32_t* sb = (int32_t*)(smem64 + rmax);           // rmax bounds
@@ -117,12 +147,17 @@ __global__ void __launch_bounds__(LEVEL_THREADS) route_level_kernel(
   }
   __syncthreads();
   for (long long i = threadIdx.x; i < m.nel; i += blockDim.x) {
-    const int32_t k = src[m.base + i] ^ xor_in;
+    const int32_t k = src.p[0][m.base + i] ^ xor_in;
     const int d = find_range(sb, rmax, k);
     if (d < rmax && sdst[d] >= 0) {
       const int slot = atomicAdd(&cur[d], 1);
       const long long o = sdst[d] + slot;
-      if (slot < scnt[d] && o < out_len) out[o] = k;
+      if (slot < scnt[d] && o < out_len) {
+        out.p[0][o] = k;
+#pragma unroll
+        for (int q = 1; q < NP; ++q)
+          out.p[q][o] = src.p[q][m.base + i] ^ xor_in;
+      }
     }
   }
   // pads occupy [cnt, cnt + npad) of each run: disjoint from the element
@@ -133,7 +168,11 @@ __global__ void __launch_bounds__(LEVEL_THREADS) route_level_kernel(
     const int c = scnt[d];
     if (j < ((-c) & (LANES - 1))) {
       const long long o = sdst[d] + c + j;
-      if (o < out_len) out[o] = padv[row0 + d];
+      if (o < out_len) {
+        out.p[0][o] = padv[row0 + d];
+#pragma unroll
+        for (int p = 1; p < NP; ++p) out.p[p][o] = SENT;
+      }
     }
   }
 }
@@ -141,25 +180,51 @@ __global__ void __launch_bounds__(LEVEL_THREADS) route_level_kernel(
 // -------------------------------------------------------- terminal_write
 // One block per bucket row of btbl = (src_row, occ_rows, real, mode,
 // fill, out_off, class, 0).  Mode 0 sorts the bucket's occ_rows*128
-// elements ascending and writes the first `real` of them, unbiased, to
-// out[out_off, out_off + real); mode 1 writes `real` copies of fill.
+// tuples ascending (lexicographic over planes 0..nlex) and writes the
+// first `real` of them, xor xor_out, to out[out_off, out_off + real) of
+// every plane; mode 1 (keys only) writes `real` copies of fill to plane 0.
 //
 // Sort: a bitonic network in its all-ascending form (the first step of
 // each merge size k compares i with i ^ (k-1), the rest i with i ^ j).
-// Every compare moves the smaller value to the lower index, so the
-// bucket is padded to a power of two N with virtual +inf that is never
-// stored: a pair whose upper index is >= m (the bucket's length) is a
-// no-op.  A bucket of up to TILE elements sorts in shared memory.  A
-// larger one (up to 2*cap_rows*128 = 2^19 keys at n >= 2^28; a block has
-// at most 227 KB) sorts in a global scratch segment: shared-memory tiles
-// are sorted first; then for every k > TILE the steps with a partner
-// distance >= TILE run on global memory and the rest of the steps of
-// that k run on each tile in shared memory.  One block owns the bucket,
-// so __syncthreads() orders the global steps.
+// Every compare moves the smaller tuple to the lower index, so the
+// bucket is padded to a power of two N with virtual all-SENT tuples that
+// are never stored: a pair whose upper index is >= m (the bucket's
+// length) is a no-op.  A bucket of up to term_tile<NP>() tuples sorts in
+// shared memory.  A larger one (up to 2*cap_rows*128 = 2^19 keys at
+// n >= 2^28; a block has at most 227 KB) sorts in a global scratch
+// segment, one per plane: shared-memory tiles are sorted first; then for
+// every k > tile the steps with a partner distance >= tile run on global
+// memory and the rest of the steps of that k run on each tile in shared
+// memory.  One block owns the bucket, so __syncthreads() orders the
+// global steps.
 
-__device__ __forceinline__ void cmpswap_smem(int32_t* s, int i, int p) {
-  const int32_t a = s[i], b = s[p];
-  if (a > b) { s[i] = b; s[p] = a; }
+// Compare-exchange of tuples i < p: plane 0 first, the next plane only
+// on a tie (up to plane nlex); a swap moves every plane.
+template <int NP>
+__device__ __forceinline__ void cmpswap(const Planes<NP>& v, int i, int p,
+                                        int nlex) {
+  int32_t a = v.p[0][i], b = v.p[0][p];
+  bool gt = a > b;
+  if (a == b) {
+#pragma unroll
+    for (int q = 1; q < NP; ++q) {
+      if (q > nlex) break;
+      a = v.p[q][i];
+      b = v.p[q][p];
+      if (a != b) {
+        gt = a > b;
+        break;
+      }
+    }
+  }
+  if (gt) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int32_t x = v.p[q][i];
+      v.p[q][i] = v.p[q][p];
+      v.p[q][p] = x;
+    }
+  }
 }
 
 // Lower index of pair q for a step with partner distance h (power of 2).
@@ -167,65 +232,79 @@ __device__ __forceinline__ int pair_lo(int q, int h) {
   return ((q & ~(h - 1)) << 1) | (q & (h - 1));
 }
 
-// Steps j = jtop, jtop/2, ..., 1 (i <-> i + j) over s[0, size).
-__device__ void smem_half_steps(int32_t* s, int size, int jtop) {
+// Steps j = jtop, jtop/2, ..., 1 (i <-> i + j) over tuples [0, size).
+template <int NP>
+__device__ void smem_half_steps(const Planes<NP>& s, int size, int jtop,
+                                int nlex) {
   for (int j = jtop; j >= 1; j >>= 1) {
     for (int q = threadIdx.x; q < (size >> 1); q += blockDim.x) {
       const int i = pair_lo(q, j);
-      cmpswap_smem(s, i, i + j);
+      cmpswap<NP>(s, i, i + j, nlex);
     }
     __syncthreads();
   }
 }
 
-// Full sort of s[0, size), size a power of two.
-__device__ void smem_sort(int32_t* s, int size) {
+// Full sort of tuples [0, size), size a power of two.
+template <int NP>
+__device__ void smem_sort(const Planes<NP>& s, int size, int nlex) {
   for (int k = 2; k <= size; k <<= 1) {
     for (int q = threadIdx.x; q < (size >> 1); q += blockDim.x) {
       const int i = pair_lo(q, k >> 1);
-      cmpswap_smem(s, i, i ^ (k - 1));
+      cmpswap<NP>(s, i, i ^ (k - 1), nlex);
     }
     __syncthreads();
-    smem_half_steps(s, size, k >> 2);
+    smem_half_steps<NP>(s, size, k >> 2, nlex);
   }
 }
 
-// One global step over g[0, N) with pair distance h; `flip` pairs i with
-// i ^ (2h - 1), otherwise with i + h.  Pairs reaching past m are no-ops.
-__device__ void global_step(int32_t* g, int N, int m, int h, bool flip) {
+// One global step over tuples [0, N) with pair distance h; `flip` pairs i
+// with i ^ (2h - 1), otherwise with i + h.  Pairs reaching past m are
+// no-ops.
+template <int NP>
+__device__ void global_step(const Planes<NP>& g, int N, int m, int h,
+                            bool flip, int nlex) {
   for (int q = threadIdx.x; q < (N >> 1); q += blockDim.x) {
     const int i = pair_lo(q, h);
     const int p = flip ? (i ^ (2 * h - 1)) : (i + h);
-    if (p < m) {
-      const int32_t a = g[i], b = g[p];
-      if (a > b) { g[i] = b; g[p] = a; }
+    if (p < m) cmpswap<NP>(g, i, p, nlex);
+  }
+  __syncthreads();
+}
+
+template <int NP>
+__device__ void load_tile(const Planes<NP>& s, const Planes<NP>& g, int c,
+                          int m) {
+  constexpr int T = term_tile<NP>();
+  for (int i = threadIdx.x; i < T; i += blockDim.x) {
+    const int e = c * T + i;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) s.p[q][i] = e < m ? g.p[q][e] : SENT;
+  }
+  __syncthreads();
+}
+
+template <int NP>
+__device__ void store_tile(const Planes<NP>& s, const Planes<NP>& g, int c,
+                           int m) {
+  constexpr int T = term_tile<NP>();
+  for (int i = threadIdx.x; i < T; i += blockDim.x) {
+    const int e = c * T + i;
+    if (e < m) {
+#pragma unroll
+      for (int q = 0; q < NP; ++q) g.p[q][e] = s.p[q][i];
     }
   }
   __syncthreads();
 }
 
-__device__ void load_tile(int32_t* s, const int32_t* g, int c, int m) {
-  for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-    const int e = c * TILE + i;
-    s[i] = e < m ? g[e] : SENT;
-  }
-  __syncthreads();
-}
-
-__device__ void store_tile(const int32_t* s, int32_t* g, int c, int m) {
-  for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-    const int e = c * TILE + i;
-    if (e < m) g[e] = s[i];
-  }
-  __syncthreads();
-}
-
+template <int NP>
 __global__ void __launch_bounds__(TERM_THREADS) terminal_write_kernel(
-    const int32_t* __restrict__ src, long long src_len,
-    const int32_t* __restrict__ btbl, int32_t* __restrict__ out,
-    long long out_len, int32_t* __restrict__ scratch, int cap_rows,
-    int class_id) {
-  extern __shared__ int32_t s[];   // TILE
+    Planes<NP> src, long long src_len, const int32_t* __restrict__ btbl,
+    Planes<NP> out, long long out_len, int32_t* __restrict__ scratch,
+    int nlex, int32_t xor_out, int cap_rows, int class_id) {
+  constexpr int T = term_tile<NP>();
+  extern __shared__ int32_t smem[];   // NP planes of T tuples
   const int32_t* row = btbl + 8LL * blockIdx.x;
   const long long src_row = row[0];
   int occ = row[1];
@@ -237,10 +316,10 @@ __global__ void __launch_bounds__(TERM_THREADS) terminal_write_kernel(
   if (real <= 0 || (class_id >= 0 && cls != class_id)) return;
   real = min(real, out_len - off);
 
-  if (mode != 0) {                       // value fill
-    const int32_t v = fill ^ BIAS;
+  if (mode != 0) {                       // value fill (keys only)
+    const int32_t v = fill ^ xor_out;
     for (long long i = threadIdx.x; i < real; i += blockDim.x)
-      out[off + i] = v;
+      out.p[0][off + i] = v;
     return;
   }
 
@@ -253,34 +332,114 @@ __global__ void __launch_bounds__(TERM_THREADS) terminal_write_kernel(
   int N = 1;
   while (N < m) N <<= 1;
 
-  if (N <= TILE) {
-    for (int i = threadIdx.x; i < N; i += blockDim.x)
-      s[i] = i < m ? src[base + i] : SENT;
+  Planes<NP> s, in;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    s.p[q] = smem + q * T;
+    in.p[q] = src.p[q] + base;
+  }
+
+  if (N <= T) {
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+#pragma unroll
+      for (int q = 0; q < NP; ++q) s.p[q][i] = i < m ? in.p[q][i] : SENT;
+    }
     __syncthreads();
-    smem_sort(s, N);
-    for (int i = threadIdx.x; i < real; i += blockDim.x)
-      out[off + i] = s[i] ^ BIAS;
+    smem_sort<NP>(s, N, nlex);
+    for (int i = threadIdx.x; i < real; i += blockDim.x) {
+#pragma unroll
+      for (int q = 0; q < NP; ++q) out.p[q][off + i] = s.p[q][i] ^ xor_out;
+    }
     return;
   }
 
-  int32_t* g = scratch + base;
-  const int ntile = (m + TILE - 1) / TILE;
-  for (int c = 0; c < ntile; ++c) {      // sorted tiles: merges up to TILE
-    load_tile(s, src + base, c, m);
-    smem_sort(s, TILE);
-    store_tile(s, g, c, m);
+  Planes<NP> g;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) g.p[q] = scratch + q * src_len + base;
+  const int ntile = (m + T - 1) / T;
+  for (int c = 0; c < ntile; ++c) {      // sorted tiles: merges up to T
+    load_tile<NP>(s, in, c, m);
+    smem_sort<NP>(s, T, nlex);
+    store_tile<NP>(s, g, c, m);
   }
-  for (int k = 2 * TILE; k <= N; k <<= 1) {
-    global_step(g, N, m, k >> 1, true);
-    for (int j = k >> 2; j >= TILE; j >>= 1) global_step(g, N, m, j, false);
+  for (int k = 2 * T; k <= N; k <<= 1) {
+    global_step<NP>(g, N, m, k >> 1, true, nlex);
+    for (int j = k >> 2; j >= T; j >>= 1)
+      global_step<NP>(g, N, m, j, false, nlex);
     for (int c = 0; c < ntile; ++c) {
-      load_tile(s, g, c, m);
-      smem_half_steps(s, TILE, TILE >> 1);
-      store_tile(s, g, c, m);
+      load_tile<NP>(s, g, c, m);
+      smem_half_steps<NP>(s, T, T >> 1, nlex);
+      store_tile<NP>(s, g, c, m);
     }
   }
-  for (int i = threadIdx.x; i < real; i += blockDim.x)
-    out[off + i] = g[i] ^ BIAS;
+  for (int i = threadIdx.x; i < real; i += blockDim.x) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q) out.p[q][off + i] = g.p[q][i] ^ xor_out;
+  }
+}
+
+// ----------------------------------------------------------- splice_runs
+// One block per run row of btbl = (src_row, occ_rows, real, ., ., out_off,
+// ., .): the first min(real, min(occ_rows, max_occ) * 128) elements at
+// src_row * 128 go, xor xor_out, to [out_off, ...) of every plane.  A
+// pure copy with element-exact stores, so runs may land in any order.
+template <int NP>
+__global__ void __launch_bounds__(SPLICE_THREADS) splice_runs_kernel(
+    Planes<NP> src, long long src_len, const int32_t* __restrict__ btbl,
+    Planes<NP> out, long long out_len, int max_occ, int32_t xor_out) {
+  const int32_t* row = btbl + 8LL * blockIdx.x;
+  const long long base = (long long)row[0] * LANES;
+  const long long occ = max(0, min(row[1], max_occ));
+  const long long off = row[5];
+  long long real = min((long long)row[2], occ * LANES);
+  real = min(real, min(out_len - off, src_len - base));
+  if (real <= 0 || base < 0 || off < 0) return;
+  for (long long i = threadIdx.x; i < real; i += blockDim.x) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      out.p[q][off + i] = src.p[q][base + i] ^ xor_out;
+  }
+}
+
+template <int NP>
+int launch_route(void* const* src, long long src_len, const void* meta,
+                 const void* bounds, const void* cnt, const void* dst,
+                 const void* padv, void* const* out, long long out_len,
+                 int ntiles, int pitch, int rmax, int32_t xor_in,
+                 cudaStream_t stream) {
+  const size_t shm = (size_t)rmax * (sizeof(long long) + 3 * sizeof(int));
+  route_level_kernel<NP><<<ntiles, LEVEL_THREADS, shm, stream>>>(
+      planes_of<NP>(src), src_len, (const int32_t*)meta,
+      (const int32_t*)bounds, (const int32_t*)cnt, (const int32_t*)dst,
+      (const int32_t*)padv, planes_of<NP>(out), out_len, pitch, rmax,
+      xor_in);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_terminal(void* const* src, long long src_len, const void* btbl,
+                    int nb, void* const* out, long long out_len,
+                    void* scratch, int nlex, int32_t xor_out, int cap_rows,
+                    int class_id, cudaStream_t stream) {
+  const size_t shm = (size_t)NP * term_tile<NP>() * sizeof(int32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      terminal_write_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shm);
+  if (err != cudaSuccess) return (int)err;
+  terminal_write_kernel<NP><<<nb, TERM_THREADS, shm, stream>>>(
+      planes_of<NP>(src), src_len, (const int32_t*)btbl, planes_of<NP>(out),
+      out_len, (int32_t*)scratch, nlex, xor_out, cap_rows, class_id);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_splice(void* const* src, long long src_len, const void* btbl,
+                  int nruns, void* const* out, long long out_len,
+                  int max_occ, int32_t xor_out, cudaStream_t stream) {
+  splice_runs_kernel<NP><<<nruns, SPLICE_THREADS, 0, stream>>>(
+      planes_of<NP>(src), src_len, (const int32_t*)btbl, planes_of<NP>(out),
+      out_len, max_occ, xor_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -302,32 +461,81 @@ int kv4_hist_level(const void* src, long long src_len, const void* meta,
   return (int)cudaGetLastError();
 }
 
-int kv4_route_level(const void* src, long long src_len, const void* meta,
-                    const void* bounds, const void* cnt, const void* dst,
-                    const void* padv, void* out, long long out_len,
-                    int ntiles, int pitch, int rmax, int bias_input,
-                    void* stream) {
-  const size_t shm = (size_t)rmax * (sizeof(long long) + 3 * sizeof(int));
-  route_level_kernel<<<ntiles, LEVEL_THREADS, shm, (cudaStream_t)stream>>>(
-      (const int32_t*)src, src_len, (const int32_t*)meta,
-      (const int32_t*)bounds, (const int32_t*)cnt, (const int32_t*)dst,
-      (const int32_t*)padv, (int32_t*)out, out_len, pitch, rmax,
-      bias_input ? BIAS : 0);
-  return (int)cudaGetLastError();
+// Plane pointers come as four arguments each (NULL past nplanes).
+int kv4_route_level(void* s0, void* s1, void* s2, void* s3,
+                    long long src_len, const void* meta, const void* bounds,
+                    const void* cnt, const void* dst, const void* padv,
+                    void* o0, void* o1, void* o2, void* o3,
+                    long long out_len, int nplanes, int ntiles, int pitch,
+                    int rmax, int bias_input, void* stream) {
+  void* const src[MAX_PLANES] = {s0, s1, s2, s3};
+  void* const out[MAX_PLANES] = {o0, o1, o2, o3};
+  const int32_t x = bias_input ? BIAS : 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (nplanes) {
+    case 1: return launch_route<1>(src, src_len, meta, bounds, cnt, dst,
+                                   padv, out, out_len, ntiles, pitch, rmax,
+                                   x, st);
+    case 2: return launch_route<2>(src, src_len, meta, bounds, cnt, dst,
+                                   padv, out, out_len, ntiles, pitch, rmax,
+                                   x, st);
+    case 3: return launch_route<3>(src, src_len, meta, bounds, cnt, dst,
+                                   padv, out, out_len, ntiles, pitch, rmax,
+                                   x, st);
+    case 4: return launch_route<4>(src, src_len, meta, bounds, cnt, dst,
+                                   padv, out, out_len, ntiles, pitch, rmax,
+                                   x, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-int kv4_terminal_write(const void* src, long long src_len, const void* btbl,
-                       int nb, void* out, long long out_len, void* scratch,
-                       int cap_rows, int class_id, void* stream) {
-  const size_t shm = TILE * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      terminal_write_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shm);
-  if (err != cudaSuccess) return (int)err;
-  terminal_write_kernel<<<nb, TERM_THREADS, shm, (cudaStream_t)stream>>>(
-      (const int32_t*)src, src_len, (const int32_t*)btbl, (int32_t*)out,
-      out_len, (int32_t*)scratch, cap_rows, class_id);
-  return (int)cudaGetLastError();
+int kv4_terminal_write(void* s0, void* s1, void* s2, void* s3,
+                       long long src_len, const void* btbl, int nb,
+                       void* o0, void* o1, void* o2, void* o3,
+                       long long out_len, void* scratch, int nplanes,
+                       int nlex, int unbias_output, int cap_rows,
+                       int class_id, void* stream) {
+  void* const src[MAX_PLANES] = {s0, s1, s2, s3};
+  void* const out[MAX_PLANES] = {o0, o1, o2, o3};
+  const int32_t x = unbias_output ? BIAS : 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (nplanes) {
+    case 1: return launch_terminal<1>(src, src_len, btbl, nb, out, out_len,
+                                      scratch, nlex, x, cap_rows, class_id,
+                                      st);
+    case 2: return launch_terminal<2>(src, src_len, btbl, nb, out, out_len,
+                                      scratch, nlex, x, cap_rows, class_id,
+                                      st);
+    case 3: return launch_terminal<3>(src, src_len, btbl, nb, out, out_len,
+                                      scratch, nlex, x, cap_rows, class_id,
+                                      st);
+    case 4: return launch_terminal<4>(src, src_len, btbl, nb, out, out_len,
+                                      scratch, nlex, x, cap_rows, class_id,
+                                      st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int kv4_splice_runs(void* s0, void* s1, void* s2, void* s3,
+                    long long src_len, const void* btbl, int nruns,
+                    void* o0, void* o1, void* o2, void* o3,
+                    long long out_len, int nplanes, int max_occ,
+                    int unbias_output, void* stream) {
+  void* const src[MAX_PLANES] = {s0, s1, s2, s3};
+  void* const out[MAX_PLANES] = {o0, o1, o2, o3};
+  const int32_t x = unbias_output ? BIAS : 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (nplanes) {
+    case 1: return launch_splice<1>(src, src_len, btbl, nruns, out, out_len,
+                                    max_occ, x, st);
+    case 2: return launch_splice<2>(src, src_len, btbl, nruns, out, out_len,
+                                    max_occ, x, st);
+    case 3: return launch_splice<3>(src, src_len, btbl, nruns, out, out_len,
+                                    max_occ, x, st);
+    case 4: return launch_splice<4>(src, src_len, btbl, nruns, out, out_len,
+                                    max_occ, x, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -27,11 +27,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PLANES = [_P] * 4            # one pointer per plane, NULL past nplanes
 _SIGNATURES = {
     "kv4_hist_level": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P],
-    "kv4_route_level": [_P, _LL, _P, _P, _P, _P, _P, _P, _LL,
-                        _I, _I, _I, _I, _P],
-    "kv4_terminal_write": [_P, _LL, _P, _I, _P, _LL, _P, _I, _I, _P],
+    "kv4_route_level": _PLANES + [_LL, _P, _P, _P, _P, _P] + _PLANES
+    + [_LL, _I, _I, _I, _I, _I, _P],
+    "kv4_terminal_write": _PLANES + [_LL, _P, _I] + _PLANES
+    + [_LL, _P, _I, _I, _I, _I, _I, _P],
+    "kv4_splice_runs": _PLANES + [_LL, _P, _I] + _PLANES
+    + [_LL, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

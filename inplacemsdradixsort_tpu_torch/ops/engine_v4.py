@@ -1,6 +1,6 @@
 """v4 engine on PyTorch: exact-histogram-planned, device-resident MSD range
-sort — the keys-only uint32 slice of ``inplacemsdradixsort_tpu``'s
-``ops/engine_v4.py`` (device-planned path).
+sort — the device-planned path of ``inplacemsdradixsort_tpu``'s
+``ops/engine_v4.py``.
 
 Pipeline (as the reference's):
 
@@ -16,12 +16,16 @@ Pipeline (as the reference's):
    value-fills a heavy bucket.
 
 A bucket beyond the XL class capacity sets the ``over`` flag; ``sort_v4``
-retries with finer buckets and a fresh sample, then falls back to
-``torch.sort``.
+retries with finer buckets and a fresh sample; when the ladder is out of
+refinements, a multi-plane input recurses into the deep tier
+(``deep.deep_sort``) and a keys-only one falls back to ``torch.sort``.
 
-Keys are int32 tensors holding the raw uint32 words (``keys.view(int32)``);
-the kernels bias them on load.  Payload planes, the host planner and the
-debug invariant suite are not ported yet (``ROADMAP.md`` A2, A4, A5).
+Planes are int32 tensors holding raw uint32 words (``keys.view(int32)``);
+the kernels bias them on load.  ``vals`` are 0-3 payload planes carried
+with the keys (rids, or the (hi, lo) words of u64 keys and rids); the
+order is lexicographic by (key, *vals).  Value fill is keys-only: with
+payload every bucket is sorted.  The host planner and the debug
+invariant suite are not ported yet (``ROADMAP.md`` A2, A4).
 """
 
 from __future__ import annotations
@@ -40,9 +44,12 @@ from .kernels_v4 import BIAS, CHUNK_ROWS, LANES, SENT
 from .plan_util import _bias_np, _ceil_div, _shape_class
 
 # engine-path observability: tests and probes assert that no input class
-# reaches the whole-array fallback (the reference's "plan" and "deep"
-# counters join with the host planner and deep recursion)
-FALLBACK_STATS = {"small_n": 0, "overflow": 0, "retry": 0}
+# reaches the whole-array fallback.  "deep" counts deep-tier entries,
+# "deep_local" the deep tier's bucket-local torch.sort (at its depth cap
+# or for <= 128 elements); the reference's "plan" counter joins with the
+# host planner.
+FALLBACK_STATS = {"small_n": 0, "overflow": 0, "retry": 0, "deep": 0,
+                  "deep_local": 0}
 
 
 def reset_fallback_stats() -> None:
@@ -226,10 +233,9 @@ def _tables_from_stats(stats: torch.Tensor, g: _GeomV4) -> dict:
     (extract_delimiters, msb_64.c:1304-1322) merged with radix-equidistant
     delimiters (:1545-1564), coalesced on a cap_frac rank grid, clamped to
     the topology and grouped in fixed stride for the two levels."""
-    if g.nplanes != 1:
-        raise NotImplementedError(
-            "payload planes are not ported yet (ROADMAP.md A5)")
     dev = stats.device
+    # value fill is keys-only: a heavy range with payload is sorted
+    keys_only = g.nplanes == 1
     rmax, nbq = g.rmax, g.nbq
     pv = stats[0] ^ BIAS                 # biased, ascending
     left, right = stats[1], stats[2]
@@ -337,8 +343,9 @@ def _tables_from_stats(stats: torch.Tensor, g: _GeomV4) -> dict:
     hvb = in_group & fh[fi_c]
 
     # ---- drop flags + terminal tables at static slots c = g*rmax + j
-    drop1 = ((glen == 1) & hvb[:, 0] & (gidx * per < nbk)).to(torch.int32)
-    drop2 = (hvb & (glen[:, None] > 1)).to(torch.int32)
+    drop1 = (keys_only & (glen == 1) & hvb[:, 0]
+             & (gidx * per < nbk)).to(torch.int32)
+    drop2 = (keys_only & hvb & (glen[:, None] > 1)).to(torch.int32)
     # one-level: the terminal child IS the L1 range; two-level: the
     # L2-flattened slot
     cidx = (gidx[:, None] * rmax + jj if g.two_level
@@ -388,17 +395,19 @@ def _level_tables(h, keep, gap_rows):
     return pads * keep[None, :], rows_c, start, dst.to(torch.int32)
 
 
-def _pipeline_core(keys: torch.Tensor, tb: dict, g: _GeomV4, *,
-                   debug: bool = False, nclasses: int = 1,
-                   timer: Optional[PhaseTimer] = None):
+def _pipeline_core(planes, tb: dict, g: _GeomV4, *, debug: bool = False,
+                   nclasses: int = 1, timer: Optional[PhaseTimer] = None):
     """Levels + terminal from a table dict ``tb``.
 
-    Returns (sorted raw words (n,) int32, over flag (0-dim int32), debug
-    dict).  With ``debug`` the dict holds the reference's keys (hist1,
-    start1, rows_c1, a1, hist2, real2, start2, rows_c2, a2, btbl) plus the
-    destination tables dst1/dst2 that ``canonical_runs`` needs."""
+    ``planes``: the key plane and its payload planes, 1-D int32 raw
+    words of equal length, sorted lexicographically over all of them.
+    Returns (sorted planes, over flag (0-dim int32), debug dict).  With ``debug`` the dict holds the reference's
+    keys (hist1, start1, rows_c1, a1, hist2, real2, start2, rows_c2, a2,
+    btbl; the arenas as plane tuples) plus the destination tables
+    dst1/dst2 that ``canonical_runs`` needs."""
     timer = timer or PhaseTimer(enabled=False)
-    dev = keys.device
+    planes = tuple(planes)
+    dev = planes[0].device
     rmax, pitch, ntiles1, t2max = g.rmax, g.pitch, g.ntiles1, g.t2max
     l1_meta = tb["l1_meta"]
     l1_bounds, l2_bounds = tb["l1_bounds"], tb["l2_bounds"]
@@ -411,9 +420,9 @@ def _pipeline_core(keys: torch.Tensor, tb: dict, g: _GeomV4, *,
     dbg = {}
 
     with timer.phase("part_blocks"):
-        # ---------------- level 1 (keys are read in place: tiles past n
+        # ---------------- level 1 (planes are read in place: tiles past n
         # are masked by their element counts, so no padded copy is made)
-        hist1 = kv4.hist_level(keys, l1_meta, l1_bounds, ntiles1, pitch,
+        hist1 = kv4.hist_level(planes[0], l1_meta, l1_bounds, ntiles1, pitch,
                                rmax, bias_input=True)
         real1 = hist1.sum(0, dtype=torch.int32)   # pre-drop true counts
         pads1, rows_c1, start1, dst1 = _level_tables(
@@ -430,7 +439,7 @@ def _pipeline_core(keys: torch.Tensor, tb: dict, g: _GeomV4, *,
                 0, g_sink.reshape(-1), pads1.reshape(-1))
         else:
             padv1 = l1_bounds[None, :].expand(ntiles1, rmax).contiguous()
-        a1 = kv4.route_level(keys, l1_meta, l1_bounds, hist1, dst1, padv1,
+        a1 = kv4.route_level(planes, l1_meta, l1_bounds, hist1, dst1, padv1,
                              g.arena1_rows, ntiles1, pitch, rmax,
                              bias_input=True)
         if debug:
@@ -460,7 +469,7 @@ def _pipeline_core(keys: torch.Tensor, tb: dict, g: _GeomV4, *,
                 torch.zeros(3, dtype=torch.int32, device=dev),
             ]).to(torch.int32)
             l2_flat = l2_bounds.reshape(-1).contiguous()
-            hist2 = kv4.hist_level(a1, meta2, l2_flat, t2max, pitch, rmax,
+            hist2 = kv4.hist_level(a1[0], meta2, l2_flat, t2max, pitch, rmax,
                                    bias_input=False)
             g2 = (parent2.long()[:, None] * rmax + ar.long()[None, :])
             g2f = g2.reshape(-1)
@@ -493,6 +502,7 @@ def _pipeline_core(keys: torch.Tensor, tb: dict, g: _GeomV4, *,
         timer.sync(hist1)
 
     if g.two_level:
+        del a1          # the terminal reads only the L2 arena
         src, real_c, rows_c, start_c, nchild = (
             a2, real2, rows_c2, start2, nchild2)
     else:
@@ -508,17 +518,19 @@ def _pipeline_core(keys: torch.Tensor, tb: dict, g: _GeomV4, *,
         final, over, btbl = _finish(
             src, reals_t, occ_t, src_t, term_mode, term_fill, term_valid,
             g.n, g.cap_rows, nclasses)
-        timer.sync(final)
+        timer.sync(final[0])
     if debug:
         dbg["btbl"] = btbl
     return final, over, dbg
 
 
-def _finish(src, reals_t, occ_t, src_t, term_mode, term_fill, term_valid,
-            n, cap_rows, nclasses=1):
+def _finish(src_planes, reals_t, occ_t, src_t, term_mode, term_fill,
+            term_valid, n, cap_rows, nclasses=1):
     """Terminal tier: class-chained ``terminal_write`` launches into one
-    exact n-element output (the reference's v4 defaults; ``out_base``,
-    ``outs0`` and ``slice_n`` serve v5 and are not ported)."""
+    exact n-element output per plane (the reference's v4 defaults;
+    ``out_base``, ``outs0`` and ``slice_n`` serve v5 and are not
+    ported)."""
+    dev = src_planes[0].device
     reals_t = torch.where(term_valid, reals_t, 0).to(torch.int32)
     occ_t = occ_t.to(torch.int32)
     # the XL rescue class sorts up to 2*cap_rows, so only a bucket beyond
@@ -528,7 +540,7 @@ def _finish(src, reals_t, occ_t, src_t, term_mode, term_fill, term_valid,
     reals_t = torch.where(term_mode == 0,
                           torch.minimum(reals_t, occ_t * LANES), reals_t)
     ends = torch.clamp(torch.cumsum(reals_t, 0, dtype=torch.int32), max=n)
-    out_off = torch.cat([_i32([0], src.device), ends[:-1]])
+    out_off = torch.cat([_i32([0], dev), ends[:-1]])
     reals_t = ends - out_off
     # capacity classes (schedule_passes pass sizing, msb_64.c:1334-1400):
     # class 0 is the XL rescue tier (2*cap), then nclasses halving caps;
@@ -541,71 +553,96 @@ def _finish(src, reals_t, occ_t, src_t, term_mode, term_fill, term_valid,
     btbl = torch.stack([src_t, occ_t, reals_t, term_mode, term_fill,
                         out_off, cls, torch.zeros_like(reals_t)],
                        1).to(torch.int32).contiguous()
-    out = torch.empty(n, dtype=torch.int32, device=src.device)
+    outs = tuple(torch.empty(n, dtype=torch.int32, device=dev)
+                 for _ in src_planes)
     for ci, cap_c in enumerate(caps):
-        kv4.terminal_write(src, btbl, out, cap_c, class_id=ci)
-    return out, over, btbl
+        kv4.terminal_write(src_planes, btbl, outs, cap_c, class_id=ci)
+    return outs, over, btbl
 
 
 # ============================================================== sort_v4
 
 def sort_v4(keys: torch.Tensor, vals=(), cfg: Optional[SortConfig] = None,
             timer: Optional[PhaseTimer] = None, _nb_mult: float = 1.0,
-            _depth: int = 0):
-    """Sort raw uint32 words held in a 1-D int32 tensor as unsigned.
+            _depth: int = 0, _deep_depth: int = 0):
+    """Sort raw uint32 words held in 1-D int32 tensors as unsigned, with
+    0-3 payload planes ``vals`` of the same length.
 
-    Returns (sorted words, ()) — the reference's (keys, vals) shape.
-    Payload planes are not ported yet (ROADMAP.md A5)."""
-    if len(vals):
-        raise NotImplementedError(
-            "payload planes (rids, u64 keys) are not ported yet "
-            "(ROADMAP.md A5)")
-    if keys.dtype != torch.int32 or keys.dim() != 1:
-        raise TypeError("sort_v4 takes a 1-D int32 tensor of raw uint32 "
-                        f"words, got {keys.dtype} {tuple(keys.shape)}")
+    The order is lexicographic by (key, *vals): a stable key sort when
+    vals[0] is the original index, a full u64 sort when the planes are
+    (hi, lo) words.  Returns (sorted keys, tuple of sorted vals)."""
+    planes = (keys,) + tuple(vals)
+    if len(planes) > kv4.MAX_PLANES:
+        raise ValueError(f"at most {kv4.MAX_PLANES} planes, got "
+                         f"{len(planes)}")
+    for p in planes:
+        if p.dtype != torch.int32 or p.dim() != 1 \
+                or p.shape != keys.shape or p.device != keys.device:
+            raise TypeError(
+                "sort_v4 takes 1-D int32 tensors of raw uint32 words of one "
+                f"length on one device, got {p.dtype} {tuple(p.shape)} on "
+                f"{p.device}")
     cfg = cfg or SortConfig()
     timer = timer or PhaseTimer(enabled=False)
-    keys = keys.contiguous()
+    planes = tuple(p.contiguous() for p in planes)
     n = int(keys.shape[0])
     thr = cfg.min_engine_n if cfg.min_engine_n is not None else (1 << 16)
     if n < thr and _depth == 0:
         FALLBACK_STATS["small_n"] += 1
-        return _torch_fallback(keys), ()
-    return _sort_v4_body_dev(keys, cfg, timer, _nb_mult, _depth, n), ()
+        return _torch_fallback(planes[0], planes[1:])
+    return _sort_v4_body_dev(planes[0], planes[1:], cfg, timer, _nb_mult,
+                             _depth, n, _deep_depth)
 
 
-def _sort_v4_body_dev(keys, cfg, timer, nb_mult, depth, n):
+def _sort_v4_body_dev(keys, vals, cfg, timer, nb_mult, depth, n,
+                      deep_depth=0):
     """Device-planned sort with the retry ladder; the ``over`` fetch is
     the completion sync."""
-    g = _dev_geometry(n, 1, cfg, nb_mult)
+    planes = (keys,) + tuple(vals)
+    g = _dev_geometry(n, len(planes), cfg, nb_mult)
     with timer.phase("sample"):
         tb = _plan_tables_dev(keys, g, salt=depth)
         tb["l1_meta"] = torch.from_numpy(_l1_meta_np(g)).to(keys.device)
         timer.sync(tb["l1_bounds"])
-    final, over, _ = _pipeline_core(keys, tb, g, nclasses=cfg.term_classes,
+    final, over, _ = _pipeline_core(planes, tb, g, nclasses=cfg.term_classes,
                                     timer=timer)
     if int(over.item()):
+        del final
         if depth < 2:
             FALLBACK_STATS["retry"] += 1
-            return _sort_v4_body_dev(keys, cfg, timer, nb_mult * 2.0,
-                                     depth + 1, n)
-        return _exhausted(keys)
-    return final
+            return _sort_v4_body_dev(keys, vals, cfg, timer, nb_mult * 2.0,
+                                     depth + 1, n, deep_depth)
+        return _exhausted(keys, vals, cfg, timer, deep_depth)
+    return final[0], tuple(final[1:])
 
 
-def _exhausted(keys):
-    """The retry ladder is out of refinements.  Keys-only inputs have
-    their heavy values value-filled already, so this means the sample
-    missed pathologically: sort with ``torch.sort``.  (Multi-plane inputs
-    recurse into deep_sort on the reference; not ported, ROADMAP.md A7.)"""
+def _exhausted(keys, vals, cfg, timer, deep_depth):
+    """The retry ladder is out of plane-0 refinements.  Multi-plane
+    inputs recurse into the lower planes (``deep.deep_sort``, the
+    ``schedule_passes`` tier over the remaining key bits,
+    msb_64.c:1334-1400); keys-only inputs have their heavy values
+    value-filled already, so this means the sample missed
+    pathologically: sort with ``torch.sort``."""
+    if len(vals):
+        from .deep import deep_sort
+        return deep_sort(keys, vals, cfg, timer, deep_depth)
     FALLBACK_STATS["overflow"] += 1
-    return _torch_fallback(keys)
+    return _torch_fallback(keys, vals)
 
 
-def _torch_fallback(keys: torch.Tensor) -> torch.Tensor:
-    """``torch.sort`` of raw uint32 words (as biased int32).  Synchronises
-    on CUDA, as the engine path does (``SortResult.synced``)."""
-    out = torch.sort(keys ^ BIAS).values ^ BIAS
-    if out.is_cuda:
-        torch.cuda.synchronize(out.device)
-    return out
+def _torch_fallback(keys: torch.Tensor, vals=()):
+    """``torch.sort`` of raw uint32 word planes, lexicographic by
+    (key, *vals): stable sorts from the least significant pair of planes
+    to the most (``kernels_v4._lex_order``).  Returns (keys, vals) and
+    synchronises on CUDA, as the engine path does
+    (``SortResult.synced``)."""
+    if not len(vals):
+        out = torch.sort(keys ^ BIAS).values ^ BIAS
+        outs = (out,)
+    else:
+        planes = (keys,) + tuple(vals)
+        perm = kv4._lex_order([p ^ BIAS for p in planes])
+        outs = tuple(p[perm] for p in planes)
+    if outs[0].is_cuda:
+        torch.cuda.synchronize(outs[0].device)
+    return outs[0], tuple(outs[1:])

@@ -1,7 +1,7 @@
-"""The v4 engine's three partition/terminal kernels, on PyTorch.
+"""The v4 engine's partition, terminal and splice kernels, on PyTorch.
 
-Each public function dispatches on the device of its input tensor: a CPU
-tensor runs the plain PyTorch version (``*_ref``, the reference
+Each public function dispatches on the device of its input tensors: a
+CPU tensor runs the plain PyTorch version (``*_ref``, the reference
 semantics the tests hold the JAX kernels against), a CUDA tensor
 launches the hand-written kernel in ``csrc/kernels_v4.cu`` and raises if
 that fails.  Nothing falls back from one to the other.
@@ -9,6 +9,13 @@ that fails.  Nothing falls back from one to the other.
 Keys are int32 in the sign-biased encoding (``kernels_v4.py:32`` of the
 JAX package): biased = raw ^ BIAS orders the raw uint32 words as signed
 int32.  SENT = biased +inf.
+
+Planes: a sort carries 1-4 int32 planes of equal length (the key, then
+payload words: rids, or the (hi, lo) words of u64 keys and rids).
+Plane 0 classifies; tuples order lexicographically over planes
+``0..nlex`` (``nlex = nplanes - 1`` on the engine's path, where equal
+tuples are identical, so an unstable sort still gives one bitwise
+result).
 
 Order inside a route run is not part of the contract: the TPU sorts the
 whole tile because it has no scatter, the CUDA kernel scatters with
@@ -18,14 +25,14 @@ cut from the level-1 arena every ``pitch`` rows, through runs, so the
 per-tile L2 counts (and from them ``rows_c2``, ``start2`` and the number
 of L2 pads) follow the arrangement; the per-child totals and the sorted
 output do not.  ``route_level_ref`` lays every run out as the TPU does
-(sorted, pads sorted in), so the CPU pipeline matches the reference's
-tables bit for bit.
+(tuples sorted, pads sorted in), so the CPU pipeline matches the
+reference's tables bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -36,9 +43,13 @@ CHUNK_ROWS = 64        # arena gap after each child (kept: the arena layout
                        # and the start tables equal the reference's)
 BIAS = -0x80000000
 SENT = 0x7FFFFFFF
+MAX_PLANES = 4
 
 # launches of each kernel since the last reset (plain versions not counted)
-LAUNCHES = {"hist_level": 0, "route_level": 0, "terminal_write": 0}
+LAUNCHES = {"hist_level": 0, "route_level": 0, "terminal_write": 0,
+            "splice_runs": 0}
+
+Planes = Tuple[torch.Tensor, ...]
 
 
 def reset_launches() -> None:
@@ -53,6 +64,27 @@ def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_planes(name: str, planes: Sequence[torch.Tensor],
+                  device: torch.device) -> Planes:
+    planes = tuple(planes)
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"{name}: 1-{MAX_PLANES} planes, got "
+                         f"{len(planes)}")
+    for p, t in enumerate(planes):
+        _check(f"{name}[{p}]", t, device)
+        if t.numel() != planes[0].numel():
+            raise ValueError(f"{name}[{p}]: {t.numel()} elements, plane 0 "
+                             f"has {planes[0].numel()}")
+    return planes
+
+
+def _check_nlex(nlex: Optional[int], nplanes: int) -> int:
+    nlex = nplanes - 1 if nlex is None else nlex
+    if not 0 <= nlex < nplanes:
+        raise ValueError(f"nlex={nlex} outside [0, {nplanes})")
+    return nlex
 
 
 def _launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
@@ -73,6 +105,12 @@ def _p(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _pp(planes: Sequence[torch.Tensor]):
+    """The pointer of every plane, padded with NULL to MAX_PLANES."""
+    ptrs = [_p(t) for t in planes]
+    return ptrs + [ctypes.c_void_p(0)] * (MAX_PLANES - len(ptrs))
+
+
 def _check_level(src, meta, bounds, ntiles, rmax, tables=()):
     dev = src.device
     for name, t in (("src", src), ("meta", meta), ("bounds", bounds)) \
@@ -91,19 +129,43 @@ def _check_level(src, meta, bounds, ntiles, rmax, tables=()):
 
 # ----------------------------------------------------- plain versions
 
-def _tile_keys(src, meta, ntiles, pitch, bias_input):
-    """(parent, keys, live) of every tile: keys (ntiles, pitch*128), with
-    the lanes at or past the tile's element count marked not live."""
+def _lex_order(cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stable permutation that sorts rows lexicographically by ``cols``
+    (integer tensors whose values fit in int32, compared as signed).
+    Neighbouring columns are folded into one int64 key, so k columns
+    take ceil(k/2) stable sorts."""
+    keys, cols = [], list(cols)
+    while cols:
+        b = cols.pop().long()
+        if cols:
+            keys.append((cols.pop().long() << 32) | (b - BIAS))
+        else:
+            keys.append(b)
+    perm = None
+    for k in keys:                  # least significant key first
+        if perm is None:
+            perm = torch.sort(k, stable=True).indices
+        else:
+            perm = perm[torch.sort(k[perm], stable=True).indices]
+    return perm
+
+
+def _tile_index(src, meta, ntiles, pitch):
+    """(parent, idx, live) of every tile: idx (ntiles, pitch*128) flat
+    source indices, with the lanes at or past the tile's element count
+    marked not live."""
     m = meta[: 3 * ntiles].view(ntiles, 3).long()
     parent, row, nel = m.unbind(1)
-    flat = src.reshape(-1)
     e = torch.arange(pitch * LANES, device=src.device)
     idx = row[:, None] * LANES + e[None, :]
-    live = (e[None, :] < nel[:, None]) & (idx < flat.numel())
-    k = flat[idx.clamp_(0, max(flat.numel() - 1, 0))]
-    if bias_input:
-        k = k ^ BIAS
-    return parent, k, live
+    live = (e[None, :] < nel[:, None]) & (idx < src.numel())
+    return parent, idx.clamp_(0, max(src.numel() - 1, 0)), live
+
+
+def _tile_keys(src, meta, ntiles, pitch, bias_input):
+    parent, idx, live = _tile_index(src, meta, ntiles, pitch)
+    k = src.reshape(-1)[idx]
+    return parent, (k ^ BIAS if bias_input else k), live
 
 
 def _classify(bounds, parent, k, rmax):
@@ -123,11 +185,15 @@ def hist_level_ref(src, meta, bounds, ntiles, pitch, rmax,
         ntiles, rmax).to(torch.int32)
 
 
-def route_level_ref(src, meta, bounds, cnt, dst, padv, dst_rows, ntiles,
+def route_level_ref(srcs, meta, bounds, cnt, dst, padv, dst_rows, ntiles,
                     pitch, rmax, bias_input=False):
-    dev = src.device
-    parent, k, live = _tile_keys(src, meta, ntiles, pitch, bias_input)
-    d = _classify(bounds, parent, k, rmax)
+    srcs = tuple(srcs)
+    dev = srcs[0].device
+    parent, idx, live = _tile_index(srcs[0], meta, ntiles, pitch)
+    vals = [s.reshape(-1)[idx] for s in srcs]
+    if bias_input:
+        vals = [v ^ BIAS for v in vals]
+    d = _classify(bounds, parent, vals[0], rmax)
     dst_l = dst.reshape(ntiles, rmax).long()
     cnt_l = cnt.reshape(-1).long()
     t = torch.arange(ntiles, device=dev)[:, None]
@@ -135,7 +201,7 @@ def route_level_ref(src, meta, bounds, cnt, dst, padv, dst_rows, ntiles,
     keep = live & (d < rmax)
     d.clamp_(max=rmax - 1)
     keep &= torch.gather(dst_l, 1, d) >= 0
-    # phantom pads: (-cnt) % 128 copies of padv for each stored run
+    # phantom pads: (-cnt) % 128 copies of (padv, SENT, ...) per stored run
     dv = dst_l.reshape(-1)
     lane = torch.arange(LANES, device=dev)
     npad = (-cnt_l) % LANES
@@ -143,21 +209,26 @@ def route_level_ref(src, meta, bounds, cnt, dst, padv, dst_rows, ntiles,
     pad_run = torch.arange(ntiles * rmax, device=dev)[:, None].expand(
         -1, LANES)[pm]
     pad_val = padv.reshape(-1, 1).expand(-1, LANES)[pm]
-    # keys and pads of every run sorted by (run, value): one int64
-    # composite key.  This is the layout the reference's sorted tile
-    # leaves, so the CPU pipeline reproduces its L2 tiling bit for bit.
     run = torch.cat([(t * rmax + d)[keep], pad_run])
-    val = torch.cat([k[keep], pad_val])
-    comp = torch.sort((run << 32) | (val.long() - BIAS)).values
-    run = comp >> 32
-    val = ((comp & 0xFFFFFFFF) + BIAS).to(torch.int32)
+    vals = [torch.cat([v[keep], pad_val if p == 0
+                       else torch.full_like(pad_val, SENT)])
+            for p, v in enumerate(vals)]
+    # every run's tuples sorted (pads sorted in): the layout the
+    # reference's sorted tile leaves, so the CPU pipeline reproduces its
+    # L2 tiling bit for bit
+    perm = _lex_order([run] + vals)
+    run = run[perm]
     counts = torch.bincount(run, minlength=ntiles * rmax)
     first = torch.cumsum(counts, 0) - counts
     slot = torch.arange(run.numel(), device=dev) - first[run]
     ok = slot < (cnt_l + npad)[run]
-    out = torch.empty(dst_rows * LANES, dtype=torch.int32, device=dev)
-    out[(dv[run] * LANES + slot)[ok]] = val[ok]
-    return out.view(dst_rows, LANES)
+    pos = (dv[run] * LANES + slot)[ok]
+    outs = []
+    for v in vals:
+        out = torch.empty(dst_rows * LANES, dtype=torch.int32, device=dev)
+        out[pos] = v[perm][ok]
+        outs.append(out.view(dst_rows, LANES))
+    return tuple(outs)
 
 
 def _spans(starts, lens):
@@ -168,43 +239,68 @@ def _spans(starts, lens):
             + total - torch.repeat_interleave(first, lens))
 
 
-def terminal_write_ref(src, btbl, out, cap_rows, class_id=None):
+def _selected(btbl, class_id):
     bt = btbl.long()
-    src_row, occ, real, mode, fill, off, cls = bt[:, :7].unbind(1)
-    sel = real > 0
+    sel = bt[:, 2] > 0
     if class_id is not None:
-        sel &= cls == class_id
-    o = out.view(-1)
+        sel &= bt[:, 6] == class_id
+    return bt, sel
+
+
+def terminal_write_ref(srcs, btbl, outs, cap_rows, class_id=None,
+                       nlex=None, unbias_output=True):
+    srcs, outs = tuple(srcs), tuple(outs)
+    nlex = _check_nlex(nlex, len(srcs))
+    xor = BIAS if unbias_output else 0
+    bt, sel = _selected(btbl, class_id)
+    src_row, occ, real, mode, fill, off = bt[:, :6].unbind(1)
     f = sel & (mode != 0)
     if bool(f.any()):
         pos = _spans(off[f], real[f])
-        o[pos] = torch.repeat_interleave(
-            fill[f].to(torch.int32) ^ BIAS, real[f])
+        outs[0].view(-1)[pos] = torch.repeat_interleave(
+            fill[f].to(torch.int32) ^ xor, real[f])
     s = sel & (mode == 0)
     if not bool(s.any()):
-        return out
-    occ_e = occ[s].clamp(max=cap_rows)
-    lens = occ_e * LANES
+        return outs
+    lens = occ[s].clamp(max=cap_rows) * LANES
     real_e = torch.minimum(real[s], lens)
     idx = _spans(src_row[s] * LANES, lens)
     bid = torch.repeat_interleave(
-        torch.arange(lens.numel(), device=src.device), lens)
-    comp = torch.sort(
-        (bid << 32) | (src.reshape(-1)[idx].long() - BIAS)).values
-    val = ((comp & 0xFFFFFFFF) + BIAS).to(torch.int32) ^ BIAS
+        torch.arange(lens.numel(), device=idx.device), lens)
+    vals = [x.reshape(-1)[idx] for x in srcs]
+    perm = _lex_order([bid] + vals[: nlex + 1])
     rank = idx - torch.repeat_interleave(src_row[s] * LANES, lens)
     w = rank < torch.repeat_interleave(real_e, lens)
-    o[(torch.repeat_interleave(off[s], lens) + rank)[w]] = val[w]
-    return out
+    pos = (torch.repeat_interleave(off[s], lens) + rank)[w]
+    for o, v in zip(outs, vals):
+        o.view(-1)[pos] = v[perm][w] ^ xor
+    return outs
 
 
-def canonical_runs(arena, dst, cnt, rows):
-    """Arena rows [0, rows) with every stored run (``dst >= 0``; a run
-    spans ceil(cnt/128) rows from row ``dst``) sorted ascending, and every
-    element outside a stored run set to 0.  Two route outputs are equal
-    under the port's contract iff their canonical forms are equal."""
-    flat = arena.reshape(-1)[: rows * LANES]
-    dev = flat.device
+def splice_runs_ref(srcs, btbl, out_n, max_occ, unbias_output=False):
+    srcs = tuple(srcs)
+    xor = BIAS if unbias_output else 0
+    bt = btbl.long()
+    src_row, occ, real, off = bt[:, 0], bt[:, 1], bt[:, 2], bt[:, 5]
+    real = torch.minimum(real, occ.clamp(max=max_occ) * LANES).clamp(min=0)
+    pos = _spans(off, real)
+    idx = _spans(src_row * LANES, real)
+    outs = []
+    for s in srcs:
+        o = torch.empty(out_n, dtype=torch.int32, device=s.device)
+        o[pos] = s.reshape(-1)[idx] ^ xor
+        outs.append(o)
+    return tuple(outs)
+
+
+def canonical_runs(arenas, dst, cnt, rows):
+    """Arena rows [0, rows) of every plane with every stored run
+    (``dst >= 0``; a run spans ceil(cnt/128) rows from row ``dst``)
+    sorted ascending by tuple, and every element outside a stored run set
+    to 0.  Two route outputs are equal under the port's contract iff
+    their canonical forms are equal."""
+    flats = [a.reshape(-1)[: rows * LANES] for a in arenas]
+    dev = flats[0].device
     dv = dst.reshape(-1).long()
     nrows = (cnt.reshape(-1).long() + LANES - 1) // LANES
     st = (dv >= 0) & (nrows > 0)
@@ -216,10 +312,14 @@ def canonical_runs(arena, dst, cnt, rows):
     pos = torch.nonzero(elem_run >= 0).squeeze(1)
     run = elem_run[pos]
     by_run = torch.sort(run, stable=True).indices
-    comp = torch.sort((run << 32) | (flat[pos].long() - BIAS)).values
-    out = torch.zeros(rows * LANES, dtype=torch.int32, device=dev)
-    out[pos[by_run]] = ((comp & 0xFFFFFFFF) + BIAS).to(torch.int32)
-    return out.view(rows, LANES)
+    vals = [f[pos] for f in flats]
+    perm = _lex_order([run] + vals)
+    outs = []
+    for v in vals:
+        out = torch.zeros(rows * LANES, dtype=torch.int32, device=dev)
+        out[pos[by_run]] = v[perm]
+        outs.append(out.view(rows, LANES))
+    return tuple(outs)
 
 
 # ---------------------------------------------------------- kernels
@@ -253,56 +353,67 @@ def hist_level(src: torch.Tensor, meta: torch.Tensor, bounds: torch.Tensor,
     return hist
 
 
-def route_level(src: torch.Tensor, meta: torch.Tensor, bounds: torch.Tensor,
-                cnt: torch.Tensor, dst: torch.Tensor, padv: torch.Tensor,
-                dst_rows: int, ntiles: int, pitch: int, rmax: int,
-                bias_input: bool = False) -> torch.Tensor:
-    """One partition level to exact precomputed destinations.
+def route_level(srcs: Sequence[torch.Tensor], meta: torch.Tensor,
+                bounds: torch.Tensor, cnt: torch.Tensor, dst: torch.Tensor,
+                padv: torch.Tensor, dst_rows: int, ntiles: int, pitch: int,
+                rmax: int, bias_input: bool = False) -> Planes:
+    """One partition level of 1-4 planes to exact precomputed
+    destinations.
 
-    Each (tile, range) run lands at arena row ``dst[t, r]`` as its
-    ``cnt[t, r]`` keys (biased) plus ``(-cnt) % 128`` copies of
-    ``padv[t, r]``, filling exactly ceil(cnt/128) rows; ``dst < 0`` skips
-    the run.  Returns the (dst_rows, 128) int32 arena; rows outside the
-    stored runs are uninitialised.  Tiles and ranges are those of
-    ``hist_level``, which must have produced ``cnt``.
+    Plane 0 classifies.  Each (tile, range) run lands at arena row
+    ``dst[t, r]`` in every plane as its ``cnt[t, r]`` tuples plus
+    ``(-cnt) % 128`` pad tuples (``padv[t, r]`` in plane 0, SENT in the
+    others), filling exactly ceil(cnt/128) rows; ``dst < 0`` skips the
+    run.  ``bias_input`` biases every plane on load.  Returns one
+    (dst_rows, 128) int32 arena per plane; rows outside the stored runs
+    are uninitialised.  Tiles and ranges are those of ``hist_level``,
+    which must have produced ``cnt``.  The kernel leaves the order inside
+    a run undefined; the plain version sorts each run by whole tuples.
 
     Replaces ``kernels_v4.py:209-499`` (``_route_body``; accumulate and
     digit modes not ported).  The TPU finds runs by sorting the padded
     tile, because it has no scatter; the port classifies by the same
     bounds as ``hist_level`` and scatters.  On the H100 it is bound by one
-    read and one scattered write of every key.  Design: one block per
-    tile; each key claims a slot of its run with a shared-memory
-    ``atomicAdd`` (order inside a run is therefore not defined), then the
-    pads fill the run's tail.  Stores are element-exact (the TPU's 64-row
-    chunk stores overshoot and rely on an in-order grid) and addresses are
-    64-bit.
+    read and one scattered write of every plane of every element.
+    Design: one block per tile; each element claims a slot of its run
+    with a shared-memory ``atomicAdd`` on plane 0's range (order inside a
+    run is therefore not defined) and stores every plane at that slot,
+    then the pads fill the run's tail.  The kernel is templated on the
+    plane count, so a keys-only launch does no per-plane work.  Stores
+    are element-exact (the TPU's 64-row chunk stores overshoot and rely
+    on an in-order grid) and addresses are 64-bit.
     """
+    srcs = _check_planes("srcs", srcs, meta.device)
     tables = (("cnt", cnt), ("dst", dst), ("padv", padv))
-    _check_level(src, meta, bounds, ntiles, rmax, tables)
-    if src.device.type == "cpu":
-        return route_level_ref(src, meta, bounds, cnt, dst, padv, dst_rows,
+    _check_level(srcs[0], meta, bounds, ntiles, rmax, tables)
+    dev = srcs[0].device
+    if dev.type == "cpu":
+        return route_level_ref(srcs, meta, bounds, cnt, dst, padv, dst_rows,
                                ntiles, pitch, rmax, bias_input)
-    out = torch.empty((dst_rows, LANES), dtype=torch.int32,
-                      device=src.device)
+    outs = tuple(torch.empty((dst_rows, LANES), dtype=torch.int32,
+                             device=dev) for _ in srcs)
     if ntiles:
-        _launch("route_level", "kv4_route_level", src.device,
-                _p(src), src.numel(), _p(meta), _p(bounds), _p(cnt),
-                _p(dst), _p(padv), _p(out), out.numel(), ntiles, pitch,
-                rmax, int(bias_input))
-    return out
+        _launch("route_level", "kv4_route_level", dev,
+                *_pp(srcs), srcs[0].numel(), _p(meta), _p(bounds), _p(cnt),
+                _p(dst), _p(padv), *_pp(outs), outs[0].numel(), len(srcs),
+                ntiles, pitch, rmax, int(bias_input))
+    return outs
 
 
-def terminal_write(src: torch.Tensor, btbl: torch.Tensor, out: torch.Tensor,
-                   cap_rows: int, class_id: Optional[int] = None
-                   ) -> torch.Tensor:
-    """Sort every bucket and write its real prefix, unbiased, in place
-    into ``out`` (flat int32); returns ``out``.
+def terminal_write(srcs: Sequence[torch.Tensor], btbl: torch.Tensor,
+                   outs: Sequence[torch.Tensor], cap_rows: int,
+                   class_id: Optional[int] = None, nlex: Optional[int] = None,
+                   unbias_output: bool = True) -> Planes:
+    """Sort every bucket's tuples and write its real prefix in place into
+    ``outs`` (one flat int32 tensor per plane); returns ``outs``.
 
     ``btbl`` (nb, 8) int32 rows are (src_row, occ_rows, real, mode, fill,
     out_off, class, 0).  Mode 0: sort the min(occ_rows, cap_rows)*128
-    biased keys at arena row src_row and write the first ``real`` of them
-    to out[out_off:out_off+real]; mode 1: write ``real`` copies of
-    fill ^ BIAS.  With ``class_id``, only the buckets of that class.
+    tuples at arena row src_row lexicographically over planes
+    ``0..nlex`` and write the first ``real`` of them to
+    out[out_off:out_off+real] of every plane; mode 1 (keys only): write
+    ``real`` copies of ``fill``.  ``unbias_output`` undoes the sign bias
+    on the way out.  With ``class_id``, only the buckets of that class.
 
     Replaces ``kernels_v4.py:504-811`` (``_terminal_body`` with its in-kernel
     ``netsort.net_sort_multi``); its head/tail read-modify-write and
@@ -311,25 +422,79 @@ def terminal_write(src: torch.Tensor, btbl: torch.Tensor, out: torch.Tensor,
     holds up to 2*cap_rows*128 = 2^19 keys at n >= 2^28), so the sort is
     bound by the passes a bitonic network makes over global memory.
     Design: one block per bucket, an all-ascending bitonic network over
-    the bucket virtually padded with +inf to a power of two; steps with a
-    partner distance below the 16K-key shared-memory tile run in shared
-    memory, longer ones on a global scratch copy of the bucket.  One
-    launch per capacity class, as ``_finish`` calls it, so that the
-    class capacity clamps exactly as on the reference.
+    the bucket virtually padded with all-SENT tuples to a power of two;
+    steps with a partner distance below the shared-memory tile (16K
+    tuples for one plane, 8K for two or three, 4K for four: at most
+    96 KiB) run in shared memory, longer ones on a global scratch copy
+    of the bucket (one per plane).  A compare reads plane 0 and only
+    reads the next plane on a tie.  One launch per capacity class, as
+    ``_finish`` calls it, so that the class capacity clamps exactly as
+    on the reference.  Mode 1 never occurs with payload planes (the
+    planner drops no range then): the wrapper raises if it does, which
+    costs a device sync per multi-plane call.
     """
-    dev = src.device
-    _check("src", src, dev)
+    dev = btbl.device
+    srcs = _check_planes("srcs", srcs, dev)
+    outs = _check_planes("outs", outs, dev)
     _check("btbl", btbl, dev)
-    _check("out", out, dev)
+    if len(outs) != len(srcs):
+        raise ValueError(f"{len(srcs)} source planes, {len(outs)} outputs")
     if btbl.dim() != 2 or btbl.shape[1] != 8:
         raise ValueError(f"btbl must be (nb, 8), got {tuple(btbl.shape)}")
+    nlex = _check_nlex(nlex, len(srcs))
+    if len(srcs) > 1:
+        bt, sel = _selected(btbl, class_id)
+        if bool((sel & (bt[:, 3] != 0)).any()):
+            raise ValueError("terminal_write: value-fill buckets (mode 1) "
+                             "cannot carry payload planes")
     if dev.type == "cpu":
-        return terminal_write_ref(src, btbl, out, cap_rows, class_id)
+        return terminal_write_ref(srcs, btbl, outs, cap_rows, class_id,
+                                  nlex, unbias_output)
     nb = btbl.shape[0]
     if nb:
-        scratch = torch.empty_like(src)
+        scratch = torch.empty((len(srcs), srcs[0].numel()),
+                              dtype=torch.int32, device=dev)
         _launch("terminal_write", "kv4_terminal_write", dev,
-                _p(src), src.numel(), _p(btbl), nb, _p(out), out.numel(),
-                _p(scratch), cap_rows,
+                *_pp(srcs), srcs[0].numel(), _p(btbl), nb, *_pp(outs),
+                outs[0].numel(), _p(scratch), len(srcs), nlex,
+                int(unbias_output), cap_rows,
                 -1 if class_id is None else int(class_id))
-    return out
+    return outs
+
+
+def splice_runs(srcs: Sequence[torch.Tensor], btbl: torch.Tensor, out_n: int,
+                max_occ: int, unbias_output: bool = False) -> Planes:
+    """Concatenate the real prefixes of row-aligned runs into dense
+    planes of ``out_n`` elements (element-exact).
+
+    ``btbl`` (nruns, 8) int32 rows are (src_row, occ_rows, real, ·, ·,
+    out_off, ·, ·): the first min(real, min(occ_rows, max_occ)*128)
+    elements at arena row src_row go to [out_off, out_off + that) of every
+    plane, unbiased when asked.  Elements of the output that no run
+    covers are uninitialised.
+
+    Replaces ``kernels_v4.py:819-1027`` (``_splice_body``).  The TPU kernel
+    writes whole rows, so it rotates each run by its lane phase, carries
+    the partial last row in VMEM from one grid step to the next and
+    flushes it at the end, which needs runs in output order; element-exact
+    stores make all of that unnecessary, and runs may land in any order.
+    On the H100 it is a pure copy, bound by one read and one write of 4
+    bytes per element per plane.  Design: one block per run, a
+    block-stride copy of every plane.  CUDA rather than Triton: it lives
+    beside the level kernels and shares their launcher and build.
+    """
+    dev = btbl.device
+    srcs = _check_planes("srcs", srcs, dev)
+    _check("btbl", btbl, dev)
+    if btbl.dim() != 2 or btbl.shape[1] != 8:
+        raise ValueError(f"btbl must be (nruns, 8), got "
+                         f"{tuple(btbl.shape)}")
+    if dev.type == "cpu":
+        return splice_runs_ref(srcs, btbl, out_n, max_occ, unbias_output)
+    outs = tuple(torch.empty(out_n, dtype=torch.int32, device=dev)
+                 for _ in srcs)
+    if btbl.shape[0]:
+        _launch("splice_runs", "kv4_splice_runs", dev,
+                *_pp(srcs), srcs[0].numel(), _p(btbl), btbl.shape[0],
+                *_pp(outs), out_n, len(srcs), max_occ, int(unbias_output))
+    return outs

@@ -1,22 +1,25 @@
 """Post-hoc verification — the reference ``check()`` analog
-(msb_64.c:2432-2505) for single tensors: ascending order, the optional
-key == rid payload check, and the additive mod-2^64 checksum.
+(msb_64.c:2432-2505): ascending order within each shard and across shard
+boundaries, the optional key == rid payload check, and the additive
+mod-2^64 checksum; plus ``check_permutation``, which verifies that a rid
+payload is exactly the permutation that sorts the input.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
-_BIAS = -0x80000000
+_BIAS32 = -0x80000000
+_BIAS64 = -0x8000000000000000
 
 
 def _ordered(keys: torch.Tensor) -> torch.Tensor:
-    """A signed view with the same order as ``keys`` (uint32 has no
-    comparison operators on the CPU)."""
+    """A signed view with the same order as ``keys`` (unsigned types have
+    no comparison operators on the CPU)."""
     if keys.dtype == torch.uint32:
-        return keys.view(torch.int32) ^ _BIAS
+        return keys.view(torch.int32) ^ _BIAS32
+    if keys.dtype == torch.uint64:
+        return keys.view(torch.int64) ^ _BIAS64
     return keys
 
 
@@ -24,6 +27,8 @@ def checksum(keys: torch.Tensor) -> int:
     """Additive mod-2^64 checksum (msb_64.c:2456-2466 ``sum += key``)."""
     if keys.dtype == torch.uint32:
         words = keys.view(torch.int32).long() & 0xFFFFFFFF
+    elif keys.dtype == torch.uint64:
+        words = keys.view(torch.int64)
     elif keys.dtype.is_floating_point:
         raise TypeError(f"checksum of {keys.dtype} is not defined")
     else:
@@ -42,26 +47,49 @@ def is_sorted(keys: torch.Tensor) -> bool:
 
 
 def check(
-    keys: torch.Tensor,
-    rids: Optional[torch.Tensor] = None,
+    keys,
+    rids=None,
     same: bool = False,
     input_checksum=None,
 ) -> int:
-    """Verify a sorted result; return its checksum.
+    """Verify a sorted (keys, rids) result; return its checksum.
 
     Asserts ascending order; with ``same``, asserts key == rid elementwise
-    (the reference's payload-integrity trick); with ``input_checksum``,
-    asserts the checksums agree."""
-    if not is_sorted(keys):
-        raise AssertionError("keys are not ascending")
-    if same:
-        if rids is None:
-            raise AssertionError("same=True requires rids")
-        if not bool((_ordered(keys) == _ordered(rids.to(keys.dtype)))
-                    .all().item()):
-            raise AssertionError("key != rid payload mismatch")
-    total = checksum(keys)
+    (the reference's payload-integrity trick, where rids start equal to
+    the keys); with ``input_checksum``, asserts the checksums agree.
+    ``keys`` (and ``rids``) may be a list of per-shard tensors (the
+    reference's per-NUMA-node arrays, include/msb_64.h:37): then the
+    boundaries between shards must be ascending too."""
+    shards = list(keys) if isinstance(keys, (list, tuple)) else [keys]
+    rshards = (list(rids) if isinstance(rids, (list, tuple))
+               else [rids] * len(shards))
+    total, prev_last = 0, None
+    for k, r in zip(shards, rshards):
+        if not is_sorted(k):
+            raise AssertionError("keys are not ascending within shard")
+        if same:
+            if r is None:
+                raise AssertionError("same=True requires rids")
+            if not bool((_ordered(k) == _ordered(r.to(k.dtype)))
+                        .all().item()):
+                raise AssertionError("key != rid payload mismatch")
+        if k.shape[0]:
+            if prev_last is not None and \
+                    bool((_ordered(k[:1]) < prev_last).item()):
+                raise AssertionError("cross-shard boundary out of order")
+            prev_last = _ordered(k[-1:])
+        total = (total + checksum(k)) % (1 << 64)
     if input_checksum is not None and total != int(input_checksum) % (1 << 64):
         raise AssertionError(
             f"checksum mismatch: {total} != {int(input_checksum)}")
     return total
+
+
+def check_permutation(sorted_keys: torch.Tensor, sorted_rids: torch.Tensor,
+                      orig_keys: torch.Tensor) -> bool:
+    """Payload-permutation integrity: sorted_keys == orig_keys[sorted_rids].
+
+    Stronger than the reference's key == rid trick: verifies that the rid
+    payload is exactly the permutation that sorts the input."""
+    gathered = orig_keys[sorted_rids.long()]
+    return bool((_ordered(gathered) == _ordered(sorted_keys)).all().item())

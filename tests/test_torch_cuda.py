@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from inplacemsdradixsort_tpu_torch import SortConfig, sort
-from inplacemsdradixsort_tpu_torch.ops import engine_v4
+from inplacemsdradixsort_tpu_torch import SortConfig, sort, sort_with_indices
+from inplacemsdradixsort_tpu_torch.ops import deep, engine_v4
 from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as kv4
 
 pytestmark = pytest.mark.cuda
@@ -48,7 +48,9 @@ def test_sort_tiny_geometry_on_card(cuda, dist, geom):
     res = sort(torch.from_numpy(x).to(cuda),
                config=SortConfig(engine="v4", **geom))
     np.testing.assert_array_equal(res.keys.cpu().numpy(), np.sort(x))
-    assert all(kv4.LAUNCHES.values()), kv4.LAUNCHES
+    # the deep tier's splice_runs is the only kernel a keys-only sort skips
+    assert all(v for k, v in kv4.LAUNCHES.items() if k != "splice_runs"), \
+        kv4.LAUNCHES
 
 
 @pytest.mark.parametrize("dist", ["uniform", "zipf", "sorted", "dup8"])
@@ -71,40 +73,166 @@ def test_sort_default_geometry_odd_n(cuda, dist):
     assert engine_v4.FALLBACK_STATS["small_n"] == 0
 
 
-def test_kernels_match_plain_versions(cuda):
-    """Record one tiny-geometry sort's kernel calls; rerun each kernel and
-    its plain version on the same CUDA tensors."""
+def _clone(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_clone(t) for t in x)
+    return x
+
+
+def _record(fn):
+    """Run ``fn`` with every kernel wrapper recording its inputs; return
+    (the wrappers, the recorded calls)."""
     calls = []
     wrappers = {k: getattr(kv4, k) for k in kv4.LAUNCHES}
 
     def rec(name):
         def run(*a, **kw):
-            calls.append((name, [t.clone() if torch.is_tensor(t) else t
-                                 for t in a], kw))
+            calls.append((name, [_clone(t) for t in a], kw))
             return wrappers[name](*a, **kw)
         return run
     for k in wrappers:
         setattr(kv4, k, rec(k))
     try:
-        x = torch.from_numpy(_keys(70_000, 2).view(np.int32)).to(cuda)
-        engine_v4.sort_v4(x, (), SortConfig(**TINY))
+        fn()
     finally:
         for k, f in wrappers.items():
             setattr(kv4, k, f)
-    assert {c[0] for c in calls} == set(wrappers)
+    return wrappers, calls
+
+
+def _replay(wrappers, calls):
+    """Rerun every recorded kernel call and its plain version on the same
+    CUDA tensors; both must agree exactly."""
     for name, a, kw in calls:
         if name == "hist_level":
-            got, want = wrappers[name](*a, **kw), kv4.hist_level_ref(*a, **kw)
+            got = (wrappers[name](*a, **kw),)
+            want = (kv4.hist_level_ref(*a, **kw),)
         elif name == "route_level":
             got = kv4.canonical_runs(wrappers[name](*a, **kw), a[4], a[3],
                                      a[6])
             want = kv4.canonical_runs(kv4.route_level_ref(*a, **kw), a[4],
                                       a[3], a[6])
-        else:
+        elif name == "terminal_write":
             src, btbl, out, cap = a
-            got = wrappers[name](src, btbl, out.clone(), cap, **kw)
-            want = kv4.terminal_write_ref(src, btbl, out.clone(), cap, **kw)
-        assert torch.equal(got, want), (name, kw)
+            got = wrappers[name](src, btbl, _clone(out), cap, **kw)
+            want = kv4.terminal_write_ref(src, btbl, _clone(out), cap, **kw)
+        else:
+            got, want = wrappers[name](*a, **kw), kv4.splice_runs_ref(*a, **kw)
+            off = a[1][:, 5].long() + a[1][:, 2].long()
+            end = int(off.max().item()) if off.numel() else 0
+            got, want = (tuple(t[:end] for t in x) for x in (got, want))
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (name, kw)
+
+
+def test_kernels_match_plain_versions(cuda):
+    """Record one tiny-geometry sort's kernel calls; rerun each kernel and
+    its plain version on the same CUDA tensors."""
+    x = torch.from_numpy(_keys(70_000, 2).view(np.int32)).to(cuda)
+    wrappers, calls = _record(
+        lambda: engine_v4.sort_v4(x, (), SortConfig(**TINY)))
+    assert {c[0] for c in calls} == set(wrappers) - {"splice_runs"}
+    _replay(wrappers, calls)
+
+
+@pytest.mark.parametrize("nvals", [1, 2, 3])
+def test_multiplane_kernels_match_plain_versions(cuda, nvals):
+    """A pairs sort with 1-3 payload planes (u32 rid; u64 rid; u64 key +
+    u64 rid): every kernel call equal to its plain version."""
+    planes = [torch.from_numpy(_keys(70_000, 10 + p).view(np.int32))
+              .to(cuda) for p in range(1 + nvals)]
+    wrappers, calls = _record(lambda: engine_v4.sort_v4(
+        planes[0], tuple(planes[1:]), SortConfig(**TINY)))
+    assert {c[0] for c in calls} == set(wrappers) - {"splice_runs"}
+    _replay(wrappers, calls)
+
+
+def test_deep_kernels_match_plain_versions(cuda):
+    """The deep tier on u64 keys with 8 distinct hi words: its route and
+    splice calls equal their plain versions."""
+    rng = np.random.default_rng(3)
+    n = 1 << 18
+    hi = rng.choice(np.array([3, 9, 17, 40, 1000, 2**31, 2**32 - 5, 77],
+                             np.uint32), n)
+    lo = rng.integers(0, 2**32, n, dtype=np.uint32)
+    p = [torch.from_numpy(a.view(np.int32)).to(cuda) for a in (hi, lo)]
+    wrappers, calls = _record(
+        lambda: deep.deep_sort(p[0], (p[1],), SortConfig()))
+    assert "splice_runs" in {c[0] for c in calls}
+    _replay(wrappers, calls)
+
+
+@pytest.mark.parametrize("kind", ["pairs_u64", "u64", "i64", "f32", "i32",
+                                  "heavy_pairs", "few_hi"])
+def test_api_types_on_card(cuda, kind):
+    """Every key type and 64-bit rids through api.sort on the card, equal
+    to numpy's lexicographic (key, rid) order."""
+    rng = np.random.default_rng(5)
+    n = (1 << 20) + 3
+    rid = rng.integers(0, 2**64, n, dtype=np.uint64)
+    if kind in ("pairs_u64", "heavy_pairs"):
+        key = rng.integers(0, 2**32, n, dtype=np.uint32)
+        if kind == "heavy_pairs":
+            key[rng.random(n) < 0.5] = 7
+    elif kind == "u64":
+        key = rng.integers(0, 2**64, n, dtype=np.uint64)
+    elif kind == "few_hi":
+        key = (rng.choice(np.array([3, 9, 2**31], np.uint64), n)
+               << np.uint64(32)) | rng.integers(0, 2**32, n, np.uint64)
+        rid = None
+    elif kind == "i64":
+        key = rng.integers(-2**63, 2**63, n, dtype=np.int64)
+    elif kind == "f32":
+        key = rng.normal(size=n).astype(np.float32)
+        key[:4] = [0.0, -0.0, np.inf, -np.inf]
+    else:
+        key = rng.integers(-2**31, 2**31, n, dtype=np.int32)
+    engine_v4.reset_fallback_stats()
+    res = sort(torch.from_numpy(key).to(cuda),
+               None if rid is None else torch.from_numpy(rid).to(cuda))
+    order_key = key.view(np.uint32) if kind == "f32" else key
+    if kind == "f32":     # IEEE total order through the bits
+        u = key.view(np.int32)
+        order_key = np.where(u < 0, ~u, u ^ np.int32(-2**31)).view(np.uint32)
+    order = (np.argsort(order_key, kind="stable") if rid is None
+             else np.lexsort((rid, order_key)))
+    np.testing.assert_array_equal(res.keys.cpu().numpy().view(np.uint8),
+                                  key[order].view(np.uint8))
+    if rid is not None:
+        np.testing.assert_array_equal(res.rids.cpu().numpy(), rid[order])
+    assert engine_v4.FALLBACK_STATS["overflow"] == 0
+    if kind in ("heavy_pairs", "few_hi"):
+        assert engine_v4.FALLBACK_STATS["deep"] >= 1
+
+
+def test_sort_with_indices_on_card(cuda):
+    x = torch.from_numpy(_keys(1 << 20, 9, "dup8")).to(cuda)
+    keys, perm = sort_with_indices(x)
+    want = torch.sort(x.view(torch.int32), stable=True).indices
+    assert torch.equal(perm, want)
+    assert torch.equal(keys.view(torch.int32), x.view(torch.int32)[perm])
+
+
+@pytest.mark.parametrize("nplanes", [2, 3, 4])
+def test_terminal_global_path_multiplane(cuda, nplanes):
+    """A bucket of 3000 rows (above every shared tile) with plane-0 ties
+    broken by the lower planes."""
+    rng = np.random.default_rng(nplanes)
+    occ = 3000
+    planes = [rng.integers(-2**31, 2**31, (occ + 8) * LANES)
+              .astype(np.int32) for _ in range(nplanes)]
+    planes[0] //= 1 << 20                     # many plane-0 ties
+    real = occ * LANES - 17
+    btbl = torch.tensor([[4, occ, real, 0, 0, 3, 0, 0]], dtype=torch.int32)
+    srcs = tuple(torch.from_numpy(p) for p in planes)
+    outs = tuple(torch.zeros(real + 8, dtype=torch.int32)
+                 for _ in planes)
+    want = kv4.terminal_write_ref(srcs, btbl, tuple(o.clone() for o in outs),
+                                  4096)
+    got = kv4.terminal_write(tuple(s.to(cuda) for s in srcs), btbl.to(cuda),
+                             tuple(o.to(cuda) for o in outs), 4096)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("occ", [1, 127, 128, 129, 1500, 4096])
@@ -120,9 +248,9 @@ def test_terminal_global_path(cuda, occ):
                         dtype=torch.int32)
     src = torch.from_numpy(arena)
     out0 = torch.zeros(real + 8 + 5, dtype=torch.int32)
-    want = kv4.terminal_write_ref(src, btbl, out0.clone(), 4096, 0)
-    got = kv4.terminal_write(src.to(cuda), btbl.to(cuda), out0.to(cuda),
-                             4096, 0)
+    (want,) = kv4.terminal_write_ref((src,), btbl, (out0.clone(),), 4096, 0)
+    (got,) = kv4.terminal_write((src.to(cuda),), btbl.to(cuda),
+                                (out0.to(cuda),), 4096, 0)
     assert torch.equal(got.cpu(), want)
 
 

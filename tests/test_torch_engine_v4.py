@@ -3,10 +3,19 @@
 Parity method: both sides get the same sample (numpy), so the same
 stats and tables; the JAX ``_pipeline_core`` runs in interpret mode once
 per case (module-scoped fixture) and the port's on the CPU, where its
-kernels run their plain versions.  Integers are compared exactly; route
+kernels run their plain versions.  Keys-only cases and 2- and 3-plane
+cases (key + rid; u64 key + rid).  Integers are compared exactly; route
 arenas through ``canonical_runs``.  The port's own ``sort_v4`` and API are
-held against ``np.sort``.
+held against ``np.sort`` / ``np.lexsort``.
+
+In the multi-plane cases the reference pipeline runs with ``lax.sort``
+as its kernels' in-tile sort (``torch_parity.lax_network``: the same
+order, without the network's minutes-long interpret-mode compile);
+these cases test the glue around the kernels: tables, L2 tiling,
+classes and output.
 """
+
+import contextlib
 
 import dataclasses
 import subprocess
@@ -21,6 +30,7 @@ import jax.numpy as jnp
 
 from inplacemsdradixsort_tpu.config import SortConfig as JConfig
 from inplacemsdradixsort_tpu.ops import engine_v4 as je
+from torch_parity import lax_network
 
 import inplacemsdradixsort_tpu_torch as rt
 from inplacemsdradixsort_tpu_torch.config import SortConfig
@@ -28,12 +38,15 @@ from inplacemsdradixsort_tpu_torch.ops import engine_v4 as te
 from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as tk
 
 TINY = dict(v3_sort_rows=32, v3_rmax=8, v3_cap_rows=32)
-# name: (geometry kwargs, n, distribution, seed)
+SMALL = dict(v3_sort_rows=16, v3_rmax=8, v3_cap_rows=2)
+# name: (geometry kwargs, n, distribution, seed, planes, terminal classes)
 CASES = {
-    "uniform_two_level": (TINY, 70_000, "uniform", 21),
+    "uniform_two_level": (TINY, 70_000, "uniform", 21, 1, 3),
     "uniform_one_level": (dict(v3_sort_rows=128, v3_rmax=48,
-                               v3_cap_rows=64), 40_000, "uniform", 11),
-    "maxheavy": (TINY, 70_000, "maxheavy", 23),
+                               v3_cap_rows=64), 40_000, "uniform", 11, 1, 3),
+    "maxheavy": (TINY, 70_000, "maxheavy", 23, 1, 3),
+    "pairs_2planes": (SMALL, 6_000, "dup3000", 31, 2, 1),
+    "u64_rid_3planes": (SMALL, 6_000, "dup3000", 37, 3, 1),
 }
 REPO = Path(__file__).resolve().parents[1]
 
@@ -52,6 +65,8 @@ def _keys(dist, n, seed):
         x = np.sort(rng.integers(0, 2**32, n, dtype=np.uint32))[::-1].copy()
     elif dist == "allequal":
         x = np.full(n, 0xCAFEBABE, np.uint32)
+    elif dist == "dup3000":      # ~2 copies a value, spread over u32
+        x = (rng.integers(0, 3000, n) * 1431655).astype(np.uint32)
     elif dist == "maxheavy":
         x = np.where(rng.random(n) < 0.3, 0xFFFFFFFF,
                      rng.integers(0, 2**32, n, dtype=np.uint32))
@@ -68,10 +83,13 @@ def _np(d):
 
 @pytest.fixture(scope="module", params=list(CASES))
 def case(request):
-    geom_kw, n, dist, seed = CASES[request.param]
+    geom_kw, n, dist, seed, nplanes, nclasses = CASES[request.param]
     x = _keys(dist, n, seed)
-    jg = je._dev_geometry(n, 1, JConfig(**geom_kw))
-    tg = te._dev_geometry(n, 1, SortConfig(**geom_kw))
+    rng = np.random.default_rng(seed + 2)
+    vals = [rng.integers(0, 2**32, n, dtype=np.uint32)
+            for _ in range(nplanes - 1)]
+    jg = je._dev_geometry(n, nplanes, JConfig(**geom_kw))
+    tg = te._dev_geometry(n, nplanes, SortConfig(**geom_kw))
     # one shared sample: the stats are computed from it on both sides
     rng = np.random.default_rng(seed + 1)
     s = np.sort(x[rng.integers(0, n, jg.S)])
@@ -83,21 +101,29 @@ def case(request):
     jtb["l1_meta"] = je._l1_meta_np(jg)
     ttb["l1_meta"] = te._l1_meta_np(tg)
 
-    jfinal, jover, jdbg = je._pipeline_core(
-        (jnp.asarray(x),), {k: jnp.asarray(v) for k, v in jtb.items()},
-        n=n, nplanes=1, nlex=0, rmax=jg.rmax, pitch=jg.pitch,
-        cap_rows=jg.cap_rows, ntiles1=jg.ntiles1, t2max=jg.t2max,
-        arena1_rows=jg.arena1_rows, arena2_rows=jg.arena2_rows,
-        out_rows=jg.out_rows, two_level=jg.two_level, interpret=True,
-        debug=True, nclasses=JConfig().term_classes)
+    planes = [x] + vals
+    with lax_network() if nplanes > 1 else contextlib.nullcontext():
+        jfinal, jover, jdbg = je._pipeline_core(
+            tuple(jnp.asarray(p) for p in planes),
+            {k: jnp.asarray(v) for k, v in jtb.items()},
+            n=n, nplanes=nplanes, nlex=nplanes - 1, rmax=jg.rmax,
+            pitch=jg.pitch, cap_rows=jg.cap_rows, ntiles1=jg.ntiles1,
+            t2max=jg.t2max, arena1_rows=jg.arena1_rows,
+            arena2_rows=jg.arena2_rows, out_rows=jg.out_rows,
+            two_level=jg.two_level, interpret=True, debug=True,
+            nclasses=nclasses)
+        jfinal = [np.asarray(f) for f in jfinal]
     tfinal, tover, tdbg = te._pipeline_core(
-        torch.from_numpy(x.view(np.int32)), te.tables_from_numpy(jtb, "cpu"),
-        tg, debug=True, nclasses=SortConfig().term_classes)
+        tuple(torch.from_numpy(p.view(np.int32)) for p in planes),
+        te.tables_from_numpy(jtb, "cpu"), tg, debug=True, nclasses=nclasses)
     return dict(
-        x=x, jg=jg, tg=tg, jstats=jstats, tstats=tstats, jtb=jtb, ttb=ttb,
-        jfinal=np.asarray(jfinal[0]), jover=int(jover), jdbg=_np(jdbg),
-        tfinal=tfinal.numpy().view(np.uint32), tover=int(tover),
-        tdbg={k: v.numpy() for k, v in tdbg.items()})
+        x=x, planes=planes, jg=jg, tg=tg, jstats=jstats, tstats=tstats,
+        jtb=jtb, ttb=ttb, name=request.param,
+        jfinal=jfinal, jover=int(jover),
+        jdbg=_np(jdbg),
+        tfinal=[f.numpy().view(np.uint32) for f in tfinal], tover=int(tover),
+        tdbg={k: (v[0] if isinstance(v, tuple) else v).numpy()
+              for k, v in tdbg.items()})
 
 
 def test_geometry_matches(case):
@@ -127,27 +153,31 @@ def test_pipeline_arenas_match(case):
     levels = [("a1", "dst1", "hist1", g.arena1_rows)]
     if g.two_level:
         levels.append(("a2", "dst2", "hist2", g.arena2_rows))
+    # the reference's debug dict holds plane 0 of each arena
     for arena, dst, cnt, rows in levels:
         dst_t, cnt_t = torch.from_numpy(t[dst]), torch.from_numpy(t[cnt])
-        want = tk.canonical_runs(torch.from_numpy(j[arena]), dst_t, cnt_t,
-                                 rows)
-        got = tk.canonical_runs(torch.from_numpy(t[arena]), dst_t, cnt_t,
-                                rows)
+        (want,) = tk.canonical_runs((torch.from_numpy(j[arena]),), dst_t,
+                                    cnt_t, rows)
+        (got,) = tk.canonical_runs((torch.from_numpy(t[arena]),), dst_t,
+                                   cnt_t, rows)
         np.testing.assert_array_equal(got.numpy(), want.numpy(),
                                       err_msg=arena)
 
 
 def test_pipeline_output_matches(case):
     assert case["tover"] == case["jover"] == 0
-    np.testing.assert_array_equal(case["tfinal"], case["jfinal"])
-    np.testing.assert_array_equal(case["tfinal"], np.sort(case["x"]))
+    order = np.lexsort(case["planes"][::-1])
+    assert len(case["tfinal"]) == len(case["planes"])
+    for p, (t, j, x) in enumerate(zip(case["tfinal"], case["jfinal"],
+                                      case["planes"])):
+        np.testing.assert_array_equal(t, j, err_msg=str(p))
+        np.testing.assert_array_equal(t, x[order], err_msg=str(p))
 
 
 def test_cases_cover_the_slice(case):
-    """The three cases together run one and two levels and value-fill."""
-    tb, g = case["ttb"], case["tg"]
-    name = [k for k, v in CASES.items() if v[1] == g.n
-            and v[0]["v3_rmax"] == g.rmax][0]
+    """The cases together run one and two levels, value fill, and 2 and
+    3 planes with no value fill."""
+    tb, g, name = case["ttb"], case["tg"], case["name"]
     if name == "uniform_one_level":
         assert not g.two_level
     else:
@@ -156,6 +186,11 @@ def test_cases_cover_the_slice(case):
         assert tb["term_mode"].any()
         assert (tb["drop1"].any() or tb["drop2"].any())
         assert case["tdbg"]["btbl"][:, 3].any()
+    if g.nplanes > 1:       # payload: every bucket is sorted
+        assert not (tb["drop1"].any() or tb["drop2"].any()
+                    or tb["term_mode"].any())
+        # plane-0 ties were broken by the payload planes
+        assert len(np.unique(case["x"])) < len(case["x"])
 
 
 # ------------------------------------------- the port's own sort_v4 / API
@@ -236,19 +271,37 @@ def test_retry_ladder_then_fallback(monkeypatch):
     assert te.FALLBACK_STATS["overflow"] == 1
 
 
-@pytest.mark.parametrize("call", [
-    lambda x: rt.sort(x, rids=torch.arange(len(x))),
-    lambda x: rt.sort(x.view(torch.int32)),
-    lambda x: rt.sort(x.view(torch.float32)),
-    lambda x: rt.sort(torch.zeros(4, dtype=torch.int64).view(torch.uint64)),
-    lambda x: rt.sort_with_indices(x),
-    lambda x: rt.sort(x, config=SortConfig(engine="v5")),
-    lambda x: te.sort_v4(x.view(torch.int32), (x.view(torch.int32),)),
-])
-def test_not_implemented(call):
+@pytest.mark.parametrize("engine", ["v5", "lsb"])
+def test_not_implemented(engine):
+    """Engines not ported yet raise, naming their ROADMAP item (rids, the
+    key types, sort_with_indices and payload planes in sort_v4 are
+    ported: tests/test_torch_api.py and the multi-plane cases here)."""
     x = torch.from_numpy(_keys("uniform", 100, 1))
-    with pytest.raises(NotImplementedError):
-        call(x)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rt.sort(x, config=SortConfig(engine=engine))
+
+
+@pytest.mark.parametrize("nvals", [1, 2, 3])
+def test_sort_v4_with_payload_planes(nvals):
+    """sort_v4 with 1-3 payload planes (formerly NotImplementedError):
+    lexicographic by (key, *vals), plane-0 ties broken by the payload."""
+    x = _keys("dup8", 70_000, 40 + nvals)
+    rng = np.random.default_rng(nvals)
+    vals = [rng.integers(0, 2**32, len(x), dtype=np.uint32)
+            for _ in range(nvals)]
+    te.reset_fallback_stats()
+    out, vout = te.sort_v4(torch.from_numpy(x.view(np.int32)),
+                           tuple(torch.from_numpy(v.view(np.int32))
+                                 for v in vals), SortConfig(**TINY))
+    order = np.lexsort(vals[::-1] + [x])
+    np.testing.assert_array_equal(out.numpy().view(np.uint32), x[order])
+    assert len(vout) == nvals
+    for v, w in zip(vout, vals):
+        np.testing.assert_array_equal(v.numpy().view(np.uint32), w[order])
+    # eight key values carry ~1/8 of the mass each: with payload no value
+    # fill applies, so the ladder ends in the deep tier, not the fallback
+    assert te.FALLBACK_STATS["overflow"] == 0
+    assert te.FALLBACK_STATS["deep"] >= 1
 
 
 def test_checking_helpers():
@@ -261,12 +314,26 @@ def test_checking_helpers():
     assert is_sorted(torch.from_numpy(np.sort(x)))
     with pytest.raises(AssertionError):
         rt.check(t)
-    assert rt.mamalloc(130).shape == (256,)
+    buf = rt.mamalloc(130, device="cpu")
+    assert buf.shape == (256,) and buf.device.type == "cpu"
+
+
+def test_mamalloc_defaults_to_the_card():
+    """Without a device, mamalloc allocates on the CUDA card, as the
+    reference's mamalloc allocates device memory; here there is none."""
+    if torch.cuda.is_available():
+        assert rt.mamalloc(130).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rt.mamalloc(130)
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, inplacemsdradixsort_tpu_torch, "
             "inplacemsdradixsort_tpu_torch.ops.engine_v4, "
+            "inplacemsdradixsort_tpu_torch.ops.deep, "
+            "inplacemsdradixsort_tpu_torch.ops.keycodec, "
+            "inplacemsdradixsort_tpu_torch.utils.checking, "
             "inplacemsdradixsort_tpu_torch.ops._build; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'inplacemsdradixsort_tpu.')) "

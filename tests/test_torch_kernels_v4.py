@@ -1,6 +1,12 @@
 """The port's v4 kernels (plain PyTorch versions, CPU) against the JAX
 Pallas kernels in interpret mode, at the tiny tile geometry
-(v3_sort_rows=32, v3_rmax=8, v3_cap_rows=32).
+(v3_sort_rows=32, v3_rmax=8, v3_cap_rows=32): keys-only and 2-3 planes
+for ``route_level`` and ``terminal_write`` (``nlex`` 1 and 2), and
+``splice_runs``.  The reference's multi-plane network compiles for
+minutes in interpret mode at these tiles: the terminal cases hold it at
+one-row capacities, and the multi-plane route cases run the reference
+kernel with ``lax.sort`` as its in-tile sort (``torch_parity``), which
+gives the same runs.
 
 Inputs come from ``np.random.default_rng(seed)`` and reach both sides as
 the same numpy arrays.  Every comparison is exact (integers, tolerance
@@ -17,6 +23,7 @@ import jax.numpy as jnp
 
 from inplacemsdradixsort_tpu.ops import kernels_v4 as jk
 from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as tk
+from torch_parity import lax_network
 from inplacemsdradixsort_tpu_torch.ops.plan_util import _bias_np
 
 SORT_ROWS, RMAX, CAP = 32, 8, 32
@@ -114,14 +121,68 @@ def test_route_level_matches_jax(bias_input, nparents, drop):
         (jnp.asarray(src),), jnp.asarray(meta), jnp.asarray(hist),
         jnp.asarray(dst), jnp.asarray(padv), dst_rows, ntiles, PITCH,
         RMAX, nlex=0, bias_input=bias_input, interpret=True)
-    got = tk.route_level(_t(src), _t(meta), _t(bounds), _t(hist), _t(dst),
-                         _t(padv), dst_rows, ntiles, PITCH, RMAX,
-                         bias_input=bias_input)
+    (got,) = tk.route_level((_t(src),), _t(meta), _t(bounds), _t(hist),
+                            _t(dst), _t(padv), dst_rows, ntiles, PITCH, RMAX,
+                            bias_input=bias_input)
     assert tuple(got.shape) == (dst_rows, LANES)
-    canon = [tk.canonical_runs(a, _t(dst), _t(hist), dst_rows).numpy()
+    canon = [tk.canonical_runs((a,), _t(dst), _t(hist), dst_rows)[0].numpy()
              for a in (torch.from_numpy(np.array(want)), got)]
     np.testing.assert_array_equal(canon[1], canon[0])
     assert (dst >= 0).sum() > 0 and np.any(canon[0] != 0)
+
+
+def _payload(rng, shape, nvals, ties=True):
+    """Payload planes.  With ``ties`` (for a sort over every plane) plane
+    1 repeats a few values, so that ties on planes 0 and 1 are broken by
+    plane 2; without, no tuple ties on the compared planes."""
+    vals = [rng.integers(-2**31, 2**31, shape).astype(np.int32)
+            for _ in range(nvals)]
+    if nvals > 1 and ties:
+        vals[0] = rng.integers(0, 4, shape).astype(np.int32)
+    return vals
+
+
+@pytest.mark.parametrize("nplanes,bias_input,nparents,drop",
+                         [(2, True, 1, (3,)), (3, False, 3, (1, 12))])
+def test_route_level_multiplane_matches_jax(nplanes, bias_input, nparents,
+                                            drop):
+    """Plane 0 classifies, every plane is stored; pads carry padv in plane
+    0 and SENT in the others.  The canonical form sorts each run by the
+    whole tuple."""
+    src, meta, bounds, ntiles = _level_inputs(6 + nplanes, bias_input,
+                                              nparents)
+    rng = np.random.default_rng(nplanes)
+    srcs = [src] + _payload(rng, src.shape, nplanes - 1)
+    hist = _jax_hist(src, meta, bounds, ntiles, bias_input)
+    dst, dst_rows = _route_tables(hist, meta, nparents, drop)
+    parent = meta[0:3 * ntiles:3]
+    padv = bounds.reshape(nparents, RMAX)[parent]
+    with lax_network():
+        want = jk.route_level(
+            tuple(jnp.asarray(p) for p in srcs), jnp.asarray(meta),
+            jnp.asarray(hist), jnp.asarray(dst), jnp.asarray(padv),
+            dst_rows, ntiles, PITCH, RMAX, nlex=nplanes - 1,
+            bias_input=bias_input, interpret=True)
+        want = [np.asarray(w) for w in want]
+    got = tk.route_level(tuple(_t(p) for p in srcs), _t(meta), _t(bounds),
+                         _t(hist), _t(dst), _t(padv), dst_rows, ntiles,
+                         PITCH, RMAX, bias_input=bias_input)
+    assert len(got) == nplanes
+    canon = [tk.canonical_runs(tuple(torch.from_numpy(np.array(a))
+                                     for a in arenas), _t(dst), _t(hist),
+                               dst_rows)
+             for arenas in (want, got)]
+    for p in range(nplanes):
+        np.testing.assert_array_equal(canon[1][p].numpy(),
+                                      canon[0][p].numpy(), err_msg=str(p))
+    # the plain version lays runs out as the TPU does: exactly equal
+    # inside every stored run
+    stored = canon[0][0].numpy() != 0
+    for p in range(nplanes):
+        np.testing.assert_array_equal(got[p].numpy()[stored],
+                                      np.asarray(want[p])[stored])
+    # pads reached the payload planes as SENT
+    assert np.any(got[1].numpy()[stored] == SENT)
 
 
 def test_canonical_runs_ignores_order_and_unstored_rows():
@@ -130,23 +191,25 @@ def test_canonical_runs_ignores_order_and_unstored_rows():
     dst = np.array([[0, 3, -1]], np.int32)
     cnt = np.array([[300, 128, 50]], np.int32)
     a = torch.from_numpy(arena)
-    c0 = tk.canonical_runs(a, _t(dst), _t(cnt), 10)
+    (c0,) = tk.canonical_runs((a,), _t(dst), _t(cnt), 10)
     shuffled = arena.copy()
     shuffled[0:3] = rng.permutation(arena[0:3].reshape(-1)).reshape(3, -1)
     shuffled[4:] = 0
-    c1 = tk.canonical_runs(torch.from_numpy(shuffled), _t(dst), _t(cnt), 10)
+    (c1,) = tk.canonical_runs((torch.from_numpy(shuffled),), _t(dst),
+                              _t(cnt), 10)
     np.testing.assert_array_equal(c0.numpy(), c1.numpy())
     np.testing.assert_array_equal(
         c0.numpy()[0:3].reshape(-1), np.sort(arena[0:3].reshape(-1)))
     assert not c0.numpy()[4:].any()
 
 
-def _terminal_case(seed):
-    """Buckets in every class incl. XL (occ > CAP) and one value-fill
-    bucket; reals below occ*128 (trailing pads trimmed)."""
+def _terminal_case(seed, fill=True, cap=CAP):
+    """Buckets in every class incl. XL (occ > cap) and one value-fill
+    bucket (keys only, ``fill``); reals below occ*128 (trailing pads
+    trimmed)."""
     rng = np.random.default_rng(seed)
-    occs = [2 * CAP, 3, CAP, 0, CAP // 2 + 1, 1, CAP // 4, 9]
-    modes = [0, 0, 0, 1, 0, 0, 0, 0]
+    occs = [2 * cap, 3, cap, 0, cap // 2 + 1, 1, max(cap // 4, 1), 9]
+    modes = [0, 0, 0, int(fill), 0, 0, 0, 0]
     src_rows = sum(occs) + 2 * CAP + 8
     arena = _bias_np(rng.integers(0, 2**32, src_rows * LANES,
                                   dtype=np.uint64).astype(np.uint32))
@@ -159,7 +222,7 @@ def _terminal_case(seed):
                      max(occ * LANES - int(rng.integers(0, LANES)), 0))
     reals = np.array(reals, np.int64)
     off = np.concatenate([[0], np.cumsum(reals)[:-1]])
-    caps = [2 * CAP, CAP, CAP // 2, CAP // 4]
+    caps = [2 * cap, cap, cap // 2, cap // 4]
     occ_a = np.array(occs)
     cls = np.full(len(occs), len(caps) - 1)
     for ci in range(len(caps) - 2, -1, -1):
@@ -185,7 +248,8 @@ def test_terminal_write_matches_jax():
     want = np.asarray(outs[0]).reshape(-1)[:n]
     got = torch.empty(n, dtype=torch.int32)
     for ci, cap_c in enumerate(caps):
-        tk.terminal_write(_t(arena), _t(btbl), got, cap_c, class_id=ci)
+        tk.terminal_write((_t(arena),), _t(btbl), (got,), cap_c,
+                          class_id=ci)
     np.testing.assert_array_equal(got.numpy(), want)
     # the value-fill bucket wrote its unbiased fill value
     o, r = int(btbl[3, 5]), int(btbl[3, 2])
@@ -198,7 +262,8 @@ def test_terminal_write_sorts_each_bucket():
     arena, btbl, caps, n = _terminal_case(5)
     got = torch.empty(n, dtype=torch.int32)
     for ci, cap_c in enumerate(caps):
-        tk.terminal_write(_t(arena), _t(btbl), got, cap_c, class_id=ci)
+        tk.terminal_write((_t(arena),), _t(btbl), (got,), cap_c,
+                          class_id=ci)
     flat = arena.reshape(-1)
     for row in btbl:
         src_row, occ, real, mode, _, off, cls, _ = (int(x) for x in row)
@@ -207,6 +272,95 @@ def test_terminal_write_sorts_each_bucket():
             ref = np.sort(flat[src_row * LANES:(src_row + occ) * LANES])
             np.testing.assert_array_equal(
                 got.numpy()[off:off + real], ref[:real] ^ np.int32(-2**31))
+
+
+# the reference's multi-plane networks compile slowly in interpret mode
+# (tens of seconds a capacity): one small capacity that clamps every
+# bucket; the class chain is covered keys-only above
+@pytest.mark.parametrize("nplanes,nlex,cap,unbias", [(2, 1, 1, True),
+                                                     (3, 1, 1, False),
+                                                     (3, 2, 1, True)])
+def test_terminal_write_multiplane_matches_jax(nplanes, nlex, cap, unbias):
+    """Tuples sorted lexicographically over planes 0..nlex, every plane
+    written, unbiased or not, at one capacity that clamps every
+    bucket."""
+    arena, btbl, _, _ = _terminal_case(10 + nplanes, fill=False, cap=cap)
+    rng = np.random.default_rng(nlex)
+    arenas = [arena] + _payload(rng, arena.shape, nplanes - 1,
+                                ties=nlex == nplanes - 1)
+    # the output holds the clamped buckets exactly
+    real = np.minimum(btbl[:, 2], np.minimum(btbl[:, 1], cap) * LANES)
+    btbl[:, 2] = real
+    btbl[:, 5] = np.cumsum(real) - real
+    n = int(real.sum())
+    out_rows = -(-n // LANES) + 2 * tk.CHUNK_ROWS + 2
+    want = jk.terminal_write(
+        tuple(jnp.asarray(a) for a in arenas), jnp.asarray(btbl), out_rows,
+        cap, nlex=nlex, unbias_output=unbias, interpret=True)
+    got = tuple(torch.empty(n, dtype=torch.int32) for _ in arenas)
+    tk.terminal_write(tuple(_t(a) for a in arenas), _t(btbl), got, cap,
+                      nlex=nlex, unbias_output=unbias)
+    for p in range(nplanes):
+        np.testing.assert_array_equal(
+            got[p].numpy(), np.asarray(want[p]).reshape(-1)[:n],
+            err_msg=str(p))
+
+
+def test_terminal_write_rejects_fill_with_payload():
+    arena, btbl, caps, n = _terminal_case(4)
+    outs = (torch.empty(n, dtype=torch.int32),) * 2
+    with pytest.raises(ValueError, match="mode 1"):
+        tk.terminal_write((_t(arena),) * 2, _t(btbl), outs, caps[-1],
+                          class_id=len(caps) - 1)
+
+
+def _splice_case(seed, nplanes):
+    """Runs of a routed arena: row-aligned, ``occ`` rows each (some above
+    max_occ, some empty), real counts below occ*128, out offsets
+    cumulative as the reference requires."""
+    rng = np.random.default_rng(seed)
+    max_occ = 6
+    occs = [3, 0, 6, 1, 9, 2, 6, 4]
+    src_rows = sum(occs) + 16
+    src_row = np.concatenate([[0], np.cumsum(occs)[:-1]]) + 2
+    real = np.array([max(o * LANES - int(rng.integers(0, 300)), 0)
+                     for o in occs])
+    real[4] = 9 * LANES                       # clipped to max_occ rows
+    real_e = np.minimum(real, np.minimum(occs, max_occ) * LANES)
+    off = np.cumsum(real_e) - real_e
+    z = np.zeros(len(occs), np.int64)
+    btbl = np.stack([src_row, occs, real, z, z, off, z, z],
+                    1).astype(np.int32)
+    srcs = [rng.integers(-2**31, 2**31, (src_rows, LANES)).astype(np.int32)
+            for _ in range(nplanes)]
+    return srcs, btbl, max_occ, int(real_e.sum())
+
+
+@pytest.mark.parametrize("nplanes,unbias", [(1, False), (3, True)])
+def test_splice_runs_matches_jax(nplanes, unbias):
+    srcs, btbl, max_occ, n = _splice_case(20 + nplanes, nplanes)
+    out_rows = -(-n // LANES) + jk.LCH + 1
+    want = jk.splice_runs(tuple(jnp.asarray(a) for a in srcs),
+                          jnp.asarray(btbl), out_rows, max_occ,
+                          unbias_output=unbias, interpret=True)
+    got = tk.splice_runs(tuple(_t(a) for a in srcs), _t(btbl), n, max_occ,
+                         unbias_output=unbias)
+    assert len(got) == nplanes
+    for p in range(nplanes):
+        np.testing.assert_array_equal(
+            got[p].numpy(), np.asarray(want[p]).reshape(-1)[:n])
+    # the first run's prefix, unbiased when asked
+    x = np.int32(-2**31) if unbias else np.int32(0)
+    r0 = int(btbl[0, 2])
+    np.testing.assert_array_equal(
+        got[0].numpy()[:r0], srcs[0].reshape(-1)[2 * LANES:2 * LANES + r0] ^ x)
+
+
+def test_lex_order_is_lexicographic_and_stable():
+    rng = np.random.default_rng(8)
+    cols = [rng.integers(-3, 3, 500).astype(np.int32) for _ in range(3)]
+    perm = tk._lex_order([torch.from_numpy(c) for c in cols]).numpy()
+    np.testing.assert_array_equal(perm, np.lexsort(cols[::-1]))
 
 
 def test_wrappers_validate_inputs():
@@ -218,8 +372,17 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         tk.hist_level(src, meta, bounds[:5], 1, PITCH, RMAX)
     with pytest.raises(ValueError):
-        tk.terminal_write(src, torch.zeros((2, 7), dtype=torch.int32),
-                          torch.zeros(8, dtype=torch.int32), CAP)
+        tk.terminal_write((src,), torch.zeros((2, 7), dtype=torch.int32),
+                          (torch.zeros(8, dtype=torch.int32),), CAP)
+    with pytest.raises(ValueError):        # planes of unequal length
+        tk.route_level((src, src[:2]), meta, bounds,
+                       torch.zeros((1, RMAX), dtype=torch.int32),
+                       torch.zeros((1, RMAX), dtype=torch.int32),
+                       torch.zeros((1, RMAX), dtype=torch.int32),
+                       4, 1, PITCH, RMAX)
+    with pytest.raises(ValueError):        # at most four planes
+        tk.splice_runs((src,) * 5, torch.zeros((1, 8), dtype=torch.int32),
+                       8, 4)
     before = dict(tk.LAUNCHES)
     tk.hist_level(src, meta, bounds, 1, PITCH, RMAX)
     assert tk.LAUNCHES == before      # plain versions count no launches
