@@ -3,49 +3,51 @@
 
     python3 chip_smoke.py
 
-Setup: builds the CUDA kernels from ``inplacemsdradixsort_tpu_torch/csrc``
-and prints the card's name and power limit.
+Setup: builds the CUDA kernels from ``inplacemsdradixsort_tpu_torch/csrc``,
+prints the card's name and power limit, and warms every kernel up on
+small sorts of 1-4 planes and one deep-tier sort (not checked, not
+counted).
 
-Phase 1 (kernels against their plain versions): records the inputs of
-the kernel calls of one ``sort`` each of
-- 2^24 uniform uint32 keys (``hist_level``, ``route_level``,
-  ``terminal_write``, one plane),
-- 2^24 (u32 key, u32 rid) pairs, 2^22 (u32 key, u64 rid) and 2^22
-  (u64 key, u64 rid) (``route_level`` and ``terminal_write`` with 2, 3
-  and 4 planes),
-- 2^22 u64 keys with 8 distinct high words, a deep-tier input
-  (``splice_runs``),
-reruns each kernel and its plain PyTorch version on those CUDA tensors
-and requires equality (exact for counts and outputs; through
-``canonical_runs`` for route arenas); times both with CUDA events and
-computes each call's bound: the bytes it must move (each input element
-read once, each output written once) at the H100 SXM's 3.35 TB/s.
-
-Phase 2 (main paths, each with the launch counts set to 0 just before it
-and read just after), ``api.sort`` on seeded data on the card, every
-result bitwise equal to a plain ``torch.sort`` reference (keys and rids,
+Main paths (each with the launch counts set to 0 just before it and read
+just after), ``api.sort`` on seeded data on the card, every result
+bitwise equal to a plain ``torch.sort`` reference (keys and rids,
 lexicographic by (key, rid)):
 - keys only: uint32 2^28 uniform (two levels, rmax 48, cap_rows 2048),
   2^22 uniform (one level, rmax 96), 2^24 with 30% 0xFFFFFFFF; equal
   mod-2^64 checksums; no small-n or overflow fallback on the uniform
   inputs;
-- payload: (u32 key, u64 rid) pairs at 2^28 and at 2^30 (2^29 where the
-  2^28 run's peak memory, scaled, does not fit the card), (u64 key, u64
-  rid) at 2^27; no fallback;
+- payload: (u32 key, u64 rid) pairs at 2^28 and at 2^30, or at 2^29
+  where ``api.check_fits`` says v4 cannot take 2^30 (u64 key, u64 rid) at
+  2^27; no fallback;
 - deep tier: 2^26 u64 keys with 8 distinct high words, and 2^26 (u32
   key, u32 rid) pairs with half the keys one value; each reports
   ``FALLBACK_STATS["deep"] >= 1`` and ``["overflow"] == 0``.
-Times the port against what a user would otherwise run (``torch.sort``
-on the keys; stable, plus a gather of the rids), and each kernel inside
+
+The first sort of every input is checked launch by launch: each call of
+``hist_level``, ``route_level``, ``terminal_write`` and ``splice_runs``
+in it (1-4 planes, at the shapes that path gives them) is held against
+the kernel's plain PyTorch version on the same CUDA tensors, exactly
+(route arenas through ``canonical_runs``).  The plain version replays
+the call in chunks of at most ``CHECK_CHUNK`` elements (tiles, buckets
+or runs), so the check fits beside the sort at every size.  Each call's
+kernel time (CUDA events around the wrapper), plain time (host clock,
+synchronised) and bound (the bytes it must move, each input element read
+once and each output written once, at the H100 SXM's 3.35 TB/s) are
+summed per kernel.  Then: the port's peak memory in a second sort, its
+time against what a user would otherwise run (``torch.sort`` on the
+keys; stable, plus a gather of the rids), and each kernel's time inside
 one 2^28 sort, keys only and pairs.
 
-Any failure raises (non-zero exit).  The last two lines are the
-per-kernel JSON record and ``{"ok": true, "device": {...}}``.  Without a
-CUDA device it exits non-zero before printing any result.
+Per-call check lines go to ``chiprun_out/chip_smoke_calls.log``; stdout
+has one line per (input, kernel, plane count).  Any failure raises
+(non-zero exit).  The last two lines are the per-kernel JSON record and
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+non-zero before printing any result.
 """
 
 import inspect
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -57,23 +59,24 @@ BIAS = -0x80000000
 I64_MIN = -0x8000000000000000
 SEED = 20240
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM at 700 W (NVIDIA data sheet)
-PHASE1_LOGN = 24
+CHECK_CHUNK = 1 << 25              # elements per plain-version replay
+CALL_LOG = os.path.join("chiprun_out", "chip_smoke_calls.log")
+# (log2 n, key kind, rid kind): one small sort per plane count, and a
+# deep-tier input, run before the main paths so that no checked launch
+# is a kernel's first
+WARMUP = [(17, "u32", None), (17, "u32", "u32"), (17, "u32", "u64"),
+          (17, "u64", "u64"), (22, "few_hi", None)]
 # (label, log2 n, share of 0xFFFFFFFF, two levels, rmax, cap_rows, timed)
 CASES = [("uniform 2^28", 28, 0.0, True, 48, 2048, True),
          ("uniform 2^22", 22, 0.0, False, 96, 1024, False),
          ("maxheavy 2^24", 24, 0.3, True, None, 1024, False)]
-# (label, log2 n, key kind, rid kind)
-PHASE1_PAYLOAD = [("pairs u32+u32 2^24", 24, "u32", "u32"),
-                  ("pairs u32+u64 2^22", 22, "u32", "u64"),
-                  ("u64+u64 2^22", 22, "u64", "u64")]
-# the first is timed kernel by kernel, and its peak memory sizes BIG_PAIRS
+# (label, log2 n, key kind, rid kind); the first is timed kernel by kernel
 PAYLOAD_CASES = [("pairs u32+u64 2^28", 28, "u32", "u64"),
                  ("u64+u64 2^27", 27, "u64", "u64")]
-BIG_PAIRS_LOGN = 30                # BASELINE.md's size; 2^29 if it won't fit
+BIG_PAIRS_LOGN = 30                # BASELINE.md's size; 2^29 if v4 can't
 # (label, log2 n, kind): inputs whose buckets no plane-0 bound can shrink
 DEEP_CASES = [("deep u64 few-hi 2^26", 26, "few_hi"),
               ("deep heavy pairs 2^26", 26, "heavy_pairs")]
-PHASE1_DEEP = ("deep u64 few-hi 2^22", 22, "few_hi")
 KERNELS = {
     # name: (source, the TPU kernel's pallas_call it replaces)
     "hist_level": ("inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
@@ -203,21 +206,6 @@ def assert_equal(got, want, label, chunk=1 << 26):
 
 # ------------------------------------------------------------- timing
 
-def cuda_ms(fn, reps=5):
-    """Median milliseconds of ``fn`` on the card (CUDA events), warm."""
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def host_ms(fns, rounds=2):
     """Median host-clock ms of each named callable, run in turns
     (a, b, b, a per round), each call ending synchronised."""
@@ -233,7 +221,16 @@ def host_ms(fns, rounds=2):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-# ----------------------------------------------------- kernel records
+def _plain(fn, *args):
+    """(fn(*args), its host-clock ms, synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+# ------------------------------------------ kernels vs plain versions
 
 def _clone(x):
     if torch.is_tensor(x):
@@ -243,31 +240,118 @@ def _clone(x):
     return x
 
 
-def record(kv4, wrappers, names, fn):
-    """Run ``fn`` with the wrappers of ``names`` snapshotting their inputs
-    (terminal_write updates its outputs in place); return the calls."""
-    captured = []
-
-    def recorder(name):
-        def rec(*args, **kw):
-            captured.append((name, [_clone(a) for a in args], dict(kw)))
-            return wrappers[name](*args, **kw)
-        return rec
-    for name in names:
-        setattr(kv4, name, recorder(name))
-    try:
-        fn()
-    finally:
-        for name, f in wrappers.items():
-            setattr(kv4, name, f)
-    return captured
-
-
 def named(fn, args, kw):
     """A wrapper call's arguments by name, defaults included."""
     bound = inspect.signature(fn).bind(*args, **kw)
     bound.apply_defaults()
     return bound.arguments
+
+
+def _err(got, want):
+    """Largest absolute difference of two plane tuples (0 if equal)."""
+    err = 0
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            err = max(err, int((g.long() - w.long()).abs().max().item()))
+    return err
+
+
+def _groups(weight):
+    """(group id of every row, number of groups): consecutive rows
+    whose weights add up to about CHECK_CHUNK share a group."""
+    if not weight.numel():
+        return weight, 0
+    gid = (torch.cumsum(weight, 0) - weight) // CHECK_CHUNK
+    return gid, int(gid[-1].item()) + 1
+
+
+def _tile_chunks(a):
+    per = max(1, CHECK_CHUNK // (a["pitch"] * LANES))
+    return [(t0, min(a["ntiles"], t0 + per))
+            for t0 in range(0, a["ntiles"], per)]
+
+
+def check_hist(kv4, a, out, _):
+    err = ms = 0
+    for t0, t1 in _tile_chunks(a):
+        want, t = _plain(kv4.hist_level_ref, a["src"], a["meta"][3 * t0:],
+                         a["bounds"], t1 - t0, a["pitch"], a["rmax"],
+                         a["bias_input"])
+        ms += t
+        err = max(err, _err((out[t0:t1],), (want,)))
+    return err, ms
+
+
+def check_route(kv4, a, out, _):
+    """Tile chunk by tile chunk, the chunk's runs are laid out packed
+    (same order, every run at the next free row), both by the plain
+    version and by gathering them from the kernel's arenas, and compared
+    through ``canonical_runs``."""
+    nt, rmax = a["ntiles"], a["rmax"]
+    cnt, dst, padv = (a[k].reshape(nt, rmax) for k in ("cnt", "dst", "padv"))
+    err = ms = 0
+    for t0, t1 in _tile_chunks(a):
+        c = cnt[t0:t1].contiguous()
+        d = dst[t0:t1].reshape(-1).long()
+        rows = torch.where(d >= 0, (c.reshape(-1).long() + LANES - 1)
+                           // LANES, 0)
+        total = int(rows.sum().item())
+        if not total:
+            continue
+        packed = torch.where(d >= 0, torch.cumsum(rows, 0) - rows, -1) \
+            .to(torch.int32).view(t1 - t0, rmax)
+        want, t = _plain(kv4.route_level_ref, a["srcs"], a["meta"][3 * t0:],
+                         a["bounds"], c, packed, padv[t0:t1].contiguous(),
+                         total, t1 - t0, a["pitch"], rmax, a["bias_input"])
+        ms += t
+        live = rows > 0
+        rix = kv4._spans(d[live], rows[live])
+        got = tuple(x.reshape(-1, LANES)[rix] for x in out)
+        err = max(err, _err(kv4.canonical_runs(got, packed, c, total),
+                            kv4.canonical_runs(want, packed, c, total)))
+    return err, ms
+
+
+def check_terminal(kv4, a, out, before):
+    """Bucket group by bucket group, the plain version writes into the
+    copy of the outputs taken before the launch."""
+    bt, sel = kv4._selected(a["btbl"], a["class_id"])
+    m = bt[:, 1].clamp(min=0, max=a["cap_rows"]) * LANES
+    gid, ngroups = _groups(torch.where(
+        sel, torch.where(bt[:, 3] == 0, m, bt[:, 2]), 0))
+    ms = 0
+    for k in range(ngroups):
+        btk = a["btbl"].clone()
+        btk[:, 2] = torch.where(sel & (gid == k), btk[:, 2], 0)
+        _, t = _plain(kv4.terminal_write_ref, a["srcs"], btk, before,
+                      a["cap_rows"], a["class_id"], a["nlex"],
+                      a["unbias_output"])
+        ms += t
+    return _err(out, before), ms
+
+
+def check_splice(kv4, a, out, _):
+    """Run group by run group, on the elements those runs cover."""
+    bt = a["btbl"].long()
+    real = torch.minimum(bt[:, 2], bt[:, 1].clamp(max=a["max_occ"])
+                         * LANES).clamp(min=0)
+    gid, ngroups = _groups(real)
+    err = ms = 0
+    for k in range(ngroups):
+        ink = gid == k
+        btk = a["btbl"].clone()
+        btk[:, 2] = torch.where(ink, btk[:, 2], 0)
+        want, t = _plain(kv4.splice_runs_ref, a["srcs"], btk, a["out_n"],
+                         a["max_occ"], a["unbias_output"])
+        ms += t
+        pos = kv4._spans(bt[ink, 5], real[ink])
+        err = max(err, _err(tuple(o[pos] for o in out),
+                            tuple(w[pos] for w in want)))
+    return err, ms
+
+
+CHECKS = {"hist_level": check_hist, "route_level": check_route,
+          "terminal_write": check_terminal, "splice_runs": check_splice}
 
 
 def _live(meta, ntiles, pitch):
@@ -307,34 +391,80 @@ def call_bytes(name, a):
                 + bt.numel())
 
 
-def replay(kv4, wrappers, name, a):
-    """(kernel fn, plain fn, canonical form) of one recorded call."""
-    plain_fn = getattr(kv4, name + "_ref")
-    if name == "terminal_write":         # it writes into ``outs``
-        def kern():
-            return wrappers[name](**dict(a, outs=_clone(a["outs"])))
+class Checker:
+    """While ``run`` drives a sort, every call of the kernel wrappers
+    launches the kernel as the path asked, then replays the call on its
+    plain version and requires equality."""
 
-        def plain():
-            return plain_fn(**dict(a, outs=_clone(a["outs"])))
-        return kern, plain, lambda x: x
-    if name == "route_level":
-        return (lambda: wrappers[name](**a), lambda: plain_fn(**a),
-                lambda x: kv4.canonical_runs(x, a["dst"], a["cnt"],
-                                             a["dst_rows"]))
-    if name == "splice_runs":           # only the covered prefix is defined
-        bt = a["btbl"].long()
-        end = int((bt[:, 5] + torch.minimum(
-            bt[:, 2], bt[:, 1].clamp(max=a["max_occ"]) * LANES)).max().item())
-        return (lambda: wrappers[name](**a), lambda: plain_fn(**a),
-                lambda x: tuple(t[:end] for t in x))
-    return (lambda: (wrappers[name](**a),), lambda: (plain_fn(**a),),
-            lambda x: x)
+    def __init__(self, kv4, wrappers, log):
+        self.kv4, self.wrappers, self.log = kv4, wrappers, log
+        self.totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                  max_abs_err=0) for name in wrappers}
+        self.by_input = {}      # (input, kernel, planes) -> sums
+
+    def run(self, label, fn):
+        self.label = label
+        for name in self.wrappers:
+            setattr(self.kv4, name, self._checked(name))
+        try:
+            return fn()
+        finally:
+            for name, f in self.wrappers.items():
+                setattr(self.kv4, name, f)
+            for (lbl, name, planes), r in self.by_input.items():
+                if lbl == label:
+                    print(f"check [{label}] {name} planes={planes}: "
+                          f"{r['calls']} calls, max_abs_err {r['err']}, "
+                          f"kernel {r['ms']:.3f} ms, plain {r['pms']:.3f} "
+                          f"ms, bound {r['bound']:.4f} ms")
+
+    def _checked(self, name):
+        kern = self.wrappers[name]
+
+        def call(*args, **kw):
+            a = named(kern, args, kw)
+            before = (_clone(tuple(a["outs"])) if name == "terminal_write"
+                      else None)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = kern(*args, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms = ev[0].elapsed_time(ev[1])
+            err, pms = CHECKS[name](self.kv4, a, out, before)
+            del before
+            bound = call_bytes(name, a) / HBM_BYTES_PER_S * 1e3
+            planes = 1 if name == "hist_level" else len(a["srcs"])
+            extra = {k: a[k] for k in ("ntiles", "rmax", "cap_rows",
+                                       "class_id", "nlex") if k in a}
+            print(f"[{self.label}] {name} planes={planes} {extra}: "
+                  f"max_abs_err {err} kernel {ms:.4f} ms plain {pms:.4f} "
+                  f"ms bound {bound:.5f} ms", file=self.log)
+            t = self.totals[name]
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            t["ms"] += ms
+            t["plain_ms"] += pms
+            t["bound_ms"] += bound
+            r = self.by_input.setdefault(
+                (self.label, name, planes),
+                dict(calls=0, err=0, ms=0.0, pms=0.0, bound=0.0))
+            r["calls"] += 1
+            r["err"] = max(r["err"], err)
+            r["ms"] += ms
+            r["pms"] += pms
+            r["bound"] += bound
+            assert err == 0, (f"{name} ({planes} planes, {extra}) on "
+                              f"{self.label} disagrees with its plain "
+                              f"version")
+            return out
+        return call
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     from inplacemsdradixsort_tpu_torch import SortConfig, sort
+    from inplacemsdradixsort_tpu_torch.api import check_fits
     from inplacemsdradixsort_tpu_torch.ops import _build, engine_v4
     from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as kv4
     from inplacemsdradixsort_tpu_torch.utils.checking import checksum
@@ -348,7 +478,6 @@ def main():
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    total_mem = torch.cuda.mem_get_info(dev)[1]
 
     # ------------------------------------------------------------ build
     t0 = time.perf_counter()
@@ -357,55 +486,18 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s")
     cfg = SortConfig()
     wrappers = {name: getattr(kv4, name) for name in KERNELS}
+    os.makedirs(os.path.dirname(CALL_LOG), exist_ok=True)
+    log = open(CALL_LOG, "w")
+    checker = Checker(kv4, wrappers, log)
 
-    # ----------------------------------- phase 1: kernels vs plain versions
-    calls = []          # (source label, name, args, kw)
-    x24 = make_keys(1 << PHASE1_LOGN, 0.0, SEED, dev)
-    for c in record(kv4, wrappers, ["hist_level", "route_level",
-                                    "terminal_write"],
-                    lambda: sort(x24, config=cfg)):
-        calls.append(("keys u32 2^24",) + c)
-    del x24
-    for label, logn, kk, rk in PHASE1_PAYLOAD:
-        keys, rids = make_input(1 << logn, kk, rk, SEED + logn, dev)
-        for c in record(kv4, wrappers, ["route_level", "terminal_write"],
-                        lambda: sort(keys, rids, config=cfg)):
-            calls.append((label,) + c)
+    # ---------------------------------------------------------- warm-up
+    for logn, kk, rk in WARMUP:
+        keys, rids = make_input(1 << logn, kk, rk, SEED - logn, dev)
+        sort(keys, rids, config=cfg)
         del keys, rids
-    label, logn, kind = PHASE1_DEEP
-    keys, _ = make_input(1 << logn, kind, None, SEED + 1, dev)
-    engine_v4.reset_fallback_stats()
-    for c in record(kv4, wrappers, ["splice_runs"],
-                    lambda: sort(keys, config=cfg)):
-        calls.append((label,) + c)
-    assert engine_v4.FALLBACK_STATS["deep"] >= 1, engine_v4.FALLBACK_STATS
-    del keys
-    assert {c[1] for c in calls} == set(KERNELS), "a kernel was not called"
+    torch.cuda.synchronize()
 
-    per_kernel = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                             max_abs_err=0) for name in KERNELS}
-    for src_label, name, args, kw in calls:
-        a = named(wrappers[name], args, kw)
-        kern, plain, canon = replay(kv4, wrappers, name, a)
-        got, want = canon(kern()), canon(plain())
-        torch.cuda.synchronize()
-        err = max(int((g.long() - w.long()).abs().max().item())
-                  if g.numel() else 0 for g, w in zip(got, want))
-        ms, pms = cuda_ms(kern), cuda_ms(plain)
-        bound = call_bytes(name, a) / HBM_BYTES_PER_S * 1e3
-        r = per_kernel[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += pms
-        r["bound_ms"] += bound
-        planes = 1 if name == "hist_level" else len(a["srcs"])
-        print(f"phase1 [{src_label}] {name} planes={planes} {kw}: "
-              f"max_abs_err {err} kernel {ms:.3f} ms plain {pms:.3f} ms "
-              f"bound {bound:.4f} ms")
-        assert err == 0, f"{name} disagrees with its plain version"
-    del calls
-
-    # ------------------------------------------------ phase 2: main paths
+    # ------------------------------------------------------ main paths
     launches = dict.fromkeys(KERNELS, 0)
     kernel_ms = {}
 
@@ -436,10 +528,10 @@ def main():
                 setattr(kv4, name, f)
         for name, evs in kernel_ms.items():
             each = [a.elapsed_time(b) for a, b in evs]
-            print(f"phase2 {label} {name}: {len(each)} calls, "
+            print(f"main {label} {name}: {len(each)} calls, "
                   f"{sum(each):.3f} ms "
                   f"({', '.join(f'{e:.3f}' for e in each)})")
-        print(f"phase2 {label} one sort: {total * 1e3:.3f} ms")
+        print(f"main {label} one sort: {total * 1e3:.3f} ms")
 
     def path(label, names):
         """Open a main path: counts to 0; returns the closing check."""
@@ -448,7 +540,7 @@ def main():
 
         def close():
             got = dict(kv4.LAUNCHES)
-            print(f"phase2 {label} launches: {got}")
+            print(f"main {label} launches: {got}")
             for name in names:
                 assert got[name] > 0, f"{name} was not launched on {label}"
             for name in KERNELS:
@@ -456,16 +548,14 @@ def main():
         return close
 
     def run_case(label, keys, rids, timed_runs, expect):
-        """Sort on the card, compare with the torch reference (computed
-        first and kept on the host), report fallbacks and times."""
+        """Sort on the card with every launch checked, compare with the
+        torch reference (computed first and kept on the host), report
+        fallbacks, then peak memory and times of unchecked sorts."""
         ref = torch_reference(keys, rids)
         ref = tuple(None if t is None else t.cpu() for t in ref)
         torch.cuda.synchronize()
         before = dict(engine_v4.FALLBACK_STATS)
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        res = sort(keys, rids, config=cfg)
-        peak = torch.cuda.max_memory_allocated(dev) - base
+        res = checker.run(label, lambda: sort(keys, rids, config=cfg))
         stats = {k: engine_v4.FALLBACK_STATS[k] - before[k] for k in before}
         assert_equal(res.keys, ref[0], label)
         if rids is not None:
@@ -474,7 +564,11 @@ def main():
             assert checksum(res.keys) == checksum(keys), label
         del res, ref
         expect(stats)
-        print(f"phase2 {label}: bitwise equal to the torch reference, "
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sort(keys, rids, config=cfg)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        print(f"main {label}: bitwise equal to the torch reference, "
               f"fallbacks {stats}, port peak {peak / 2**30:.3f} GiB over "
               f"its inputs")
         if timed_runs:
@@ -484,11 +578,10 @@ def main():
             n = keys.shape[0]
             what = "torch.sort" if rids is None else \
                 "torch.sort(stable) + rid gather"
-            print(f"phase2 {label} port: median {t['port']:.3f} ms "
+            print(f"main {label} port: median {t['port']:.3f} ms "
                   f"({n / t['port'] * 1e3:.4e} keys/s); {what}: median "
                   f"{t['torch']:.3f} ms ({n / t['torch'] * 1e3:.4e} "
                   f"keys/s); {2 * timed_runs} runs each, alternated")
-        return peak
 
     def no_fallback(label):
         def expect(stats):
@@ -508,11 +601,11 @@ def main():
         x = make_keys(n, heavy, SEED + logn, dev)
         run_case(label, x, None, 2 if timed_ else 0,
                  (lambda s: None) if heavy else no_fallback(label))
-        print(f"phase2 {label}: checksum {checksum(x)}, rmax {g.rmax} "
+        print(f"main {label}: checksum {checksum(x)}, rmax {g.rmax} "
               f"two_level {g.two_level} cap_rows {g.cap_rows}")
         if timed_:
             res = sort(x, config=cfg, timing=True)
-            print(f"phase2 {label} phases (host clock, synchronised):")
+            print(f"main {label} phases (host clock, synchronised):")
             print(res.pretty_times())
             del res
             breakdown(label, lambda: sort(x, config=cfg))
@@ -521,33 +614,20 @@ def main():
 
     # ---- payload planes
     close = path("payload", ["hist_level", "route_level", "terminal_write"])
-    peaks = []
     for i, (label, logn, kk, rk) in enumerate(PAYLOAD_CASES):
         keys, rids = make_input(1 << logn, kk, rk, SEED + logn, dev)
-        peaks.append(run_case(label, keys, rids, 2, no_fallback(label)))
+        run_case(label, keys, rids, 2, no_fallback(label))
         if i == 0:
             breakdown(label, lambda: sort(keys, rids, config=cfg))
         del keys, rids
-    # BASELINE's 2^30 rows if (a) the first pairs run's peak, scaled to
-    # 2^30, and the 2^30 inputs (4 B key + 8 B rid a row) fit with 4 GiB
-    # spare, and (b) v4's two-level topology holds the buckets that size
-    # asks for (at most rmax^2 of them, each up to the XL class); else 2^29
-    big, logn0 = BIG_PAIRS_LOGN, PAYLOAD_CASES[0][1]
-    need = (peaks[0] << (big - logn0)) + (12 << big) + (4 << 30)
-    g = engine_v4._dev_geometry(1 << big, 3, cfg)
-    buckets = int(g.nb_want * 1.3) + g.nrad + 2    # the planner's estimate
-    most = g.rmax ** 2 if g.two_level else g.rmax
-    print(f"phase2 pairs at 2^{big}: memory: the 2^{logn0} port peak "
-          f"{peaks[0] / 2**30:.3f} GiB scaled + {(12 << big) / 2**30:.0f} "
-          f"GiB of inputs + 4 GiB = {need / 2**30:.3f} GiB against the "
-          f"card's {total_mem / 2**30:.3f} GiB; topology: ~{buckets} "
-          f"buckets of ~{int(g.cap_rows * 128 * 0.8)} tuples wanted, "
-          f"{most} possible")
-    if need > total_mem or buckets > most:
+    # BASELINE's 2^30 rows where engine="auto" would take them, else 2^29
+    big = BIG_PAIRS_LOGN
+    try:
+        check_fits(1 << big, 3, dev, cfg)
+    except NotImplementedError as e:
+        print(f"main pairs at 2^{big}: {e}")
         big -= 1
-        print(f"phase2 pairs: 2^{BIG_PAIRS_LOGN} does not fit v4 on this "
-              f"card (the reference switches to the in-place v5 there, "
-              f"not ported: ROADMAP A10); running 2^{big}")
+        check_fits(1 << big, 3, dev, cfg)
     label = f"pairs u32+u64 2^{big}"
     keys, rids = make_input(1 << big, "u32", "u64", SEED + big, dev)
     run_case(label, keys, rids, 1, no_fallback(label))
@@ -568,14 +648,18 @@ def main():
         del keys, rids
     close()
 
-    print(f"phase2 launches (all paths): {launches}")
+    log.close()
+    checked = {name for _, name, _ in checker.by_input}
+    assert checked == set(KERNELS), f"kernels never checked: {checked}"
+    print(f"main launches (all paths): {launches}")
+    totals = checker.totals
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
-         "max_abs_err": per_kernel[name]["max_abs_err"],
-         "ms": round(per_kernel[name]["ms"], 4),
-         "plain_ms": round(per_kernel[name]["plain_ms"], 4),
-         "bound_ms": round(per_kernel[name]["bound_ms"], 4),
+         "max_abs_err": totals[name]["max_abs_err"],
+         "ms": round(totals[name]["ms"], 4),
+         "plain_ms": round(totals[name]["plain_ms"], 4),
+         "bound_ms": round(totals[name]["bound_ms"], 4),
          "bound_by": "bytes", "library_ms": None}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

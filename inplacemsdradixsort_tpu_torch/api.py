@@ -5,6 +5,7 @@
     sort(keys, rids=None, config=..., timing=False) -> SortResult
     sort_with_indices(keys, config=...)             -> (keys, permutation)
     check(keys, rids=None, same=False)              -> checksum
+    check_fits(n, nplanes, device, config)          -> raises past v4
     mamalloc(n, dtype, fudge, device)               -> padded buffer
 
 Keys are uint32, int32, float32, uint64 or int64; rids any integer type,
@@ -29,7 +30,8 @@ from .ops.kernels_v4 import LANES
 from .utils.checking import check  # re-exported
 from .utils.timing import PhaseTimer
 
-__all__ = ["SortResult", "sort", "sort_with_indices", "check", "mamalloc"]
+__all__ = ["SortResult", "sort", "sort_with_indices", "check", "check_fits",
+           "mamalloc"]
 
 KEY_DTYPES = (torch.uint32, torch.int32, torch.float32, torch.uint64,
               torch.int64)
@@ -94,18 +96,27 @@ def _select_engine(cfg: SortConfig, keys: torch.Tensor) -> str:
     return engine
 
 
-def _check_fits(keys: torch.Tensor, nplanes: int) -> None:
-    """The size switch of the reference's ``engine="auto"``: where v4's
-    working set exceeds 75% of the card's memory, the in-place v5 engine
-    is the one that still fits.  v5 is not ported, so say so instead of
-    running out of memory."""
-    total = torch.cuda.mem_get_info(keys.device)[1]
-    need = V4_BYTES_PER_PLANE_ELEM * nplanes * keys.shape[0]
+def check_fits(n: int, nplanes: int, device=None,
+               config: SortConfig = DEFAULT_CONFIG) -> None:
+    """The size switch of the reference's ``engine="auto"``, which hands
+    an input to the in-place v5 engine where v4 cannot sort it.  v5 is not
+    ported, so this raises ``NotImplementedError`` instead of running out
+    of memory when n elements of ``nplanes`` uint32 planes
+    - ask for more buckets than v4's topology holds (ROADMAP.md C9), or
+    - need a v4 working set over 75% of ``device``'s memory."""
+    wanted, room = engine_v4.bucket_room(n, nplanes, config)
+    if wanted > room:
+        raise NotImplementedError(
+            f"{n} elements x {nplanes} planes ask for ~{wanted} buckets, v4's "
+            f"topology holds {room} (ROADMAP.md C9): the in-place v5 engine "
+            "that sorts them is not ported yet (ROADMAP.md A10)")
+    total = torch.cuda.mem_get_info(device)[1]
+    need = V4_BYTES_PER_PLANE_ELEM * nplanes * n
     if need > 0.75 * total:
         raise NotImplementedError(
-            f"{keys.shape[0]} elements x {nplanes} planes need ~{need:.3g} B "
-            f"in v4, over 75% of the card's {total} B: the in-place v5 "
-            "engine that fits them is not ported yet (ROADMAP.md A10)")
+            f"{n} elements x {nplanes} planes need ~{need:.3g} B in v4, over "
+            f"75% of the card's {total} B: the in-place v5 engine that fits "
+            "them is not ported yet (ROADMAP.md A10)")
 
 
 def _key_planes(keys: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -192,7 +203,8 @@ def sort(
     timer = PhaseTimer(enabled=timing)
     engine = _select_engine(config, keys)
     if engine == "v4" and config.engine == "auto":
-        _check_fits(keys, len(kplanes) + len(vplanes))
+        check_fits(keys.shape[0], len(kplanes) + len(vplanes), keys.device,
+                   config)
     if engine == "v4":
         outs, vouts = engine_v4.sort_v4(kplanes[0], kplanes[1:] + vplanes,
                                         config, timer=timer)

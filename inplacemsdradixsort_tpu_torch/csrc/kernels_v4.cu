@@ -192,7 +192,9 @@ __global__ void __launch_bounds__(LEVEL_THREADS) route_level_kernel(
 // length) is a no-op.  A bucket of up to term_tile<NP>() tuples sorts in
 // shared memory.  A larger one (up to 2*cap_rows*128 = 2^19 keys at
 // n >= 2^28; a block has at most 227 KB) sorts in a global scratch
-// segment, one per plane: shared-memory tiles are sorted first; then for
+// segment of m tuples, one per plane, at scratch + q * scratch_len +
+// soff[bucket] (the wrapper packs the segments of the launch's large
+// buckets only): shared-memory tiles are sorted first; then for
 // every k > tile the steps with a partner distance >= tile run on global
 // memory and the rest of the steps of that k run on each tile in shared
 // memory.  One block owns the bucket, so __syncthreads() orders the
@@ -302,7 +304,8 @@ template <int NP>
 __global__ void __launch_bounds__(TERM_THREADS) terminal_write_kernel(
     Planes<NP> src, long long src_len, const int32_t* __restrict__ btbl,
     Planes<NP> out, long long out_len, int32_t* __restrict__ scratch,
-    int nlex, int32_t xor_out, int cap_rows, int class_id) {
+    const long long* __restrict__ soff, long long scratch_len, int nlex,
+    int32_t xor_out, int cap_rows, int class_id) {
   constexpr int T = term_tile<NP>();
   extern __shared__ int32_t smem[];   // NP planes of T tuples
   const int32_t* row = btbl + 8LL * blockIdx.x;
@@ -355,7 +358,8 @@ __global__ void __launch_bounds__(TERM_THREADS) terminal_write_kernel(
 
   Planes<NP> g;
 #pragma unroll
-  for (int q = 0; q < NP; ++q) g.p[q] = scratch + q * src_len + base;
+  for (int q = 0; q < NP; ++q)
+    g.p[q] = scratch + q * scratch_len + soff[blockIdx.x];
   const int ntile = (m + T - 1) / T;
   for (int c = 0; c < ntile; ++c) {      // sorted tiles: merges up to T
     load_tile<NP>(s, in, c, m);
@@ -419,8 +423,9 @@ int launch_route(void* const* src, long long src_len, const void* meta,
 template <int NP>
 int launch_terminal(void* const* src, long long src_len, const void* btbl,
                     int nb, void* const* out, long long out_len,
-                    void* scratch, int nlex, int32_t xor_out, int cap_rows,
-                    int class_id, cudaStream_t stream) {
+                    void* scratch, const void* soff, long long scratch_len,
+                    int nlex, int32_t xor_out, int cap_rows, int class_id,
+                    cudaStream_t stream) {
   const size_t shm = (size_t)NP * term_tile<NP>() * sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(
       terminal_write_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -428,7 +433,8 @@ int launch_terminal(void* const* src, long long src_len, const void* btbl,
   if (err != cudaSuccess) return (int)err;
   terminal_write_kernel<NP><<<nb, TERM_THREADS, shm, stream>>>(
       planes_of<NP>(src), src_len, (const int32_t*)btbl, planes_of<NP>(out),
-      out_len, (int32_t*)scratch, nlex, xor_out, cap_rows, class_id);
+      out_len, (int32_t*)scratch, (const long long*)soff, scratch_len, nlex,
+      xor_out, cap_rows, class_id);
   return (int)cudaGetLastError();
 }
 
@@ -492,26 +498,27 @@ int kv4_route_level(void* s0, void* s1, void* s2, void* s3,
 int kv4_terminal_write(void* s0, void* s1, void* s2, void* s3,
                        long long src_len, const void* btbl, int nb,
                        void* o0, void* o1, void* o2, void* o3,
-                       long long out_len, void* scratch, int nplanes,
-                       int nlex, int unbias_output, int cap_rows,
-                       int class_id, void* stream) {
+                       long long out_len, void* scratch, const void* soff,
+                       long long scratch_len, int nplanes, int nlex,
+                       int unbias_output, int cap_rows, int class_id,
+                       void* stream) {
   void* const src[MAX_PLANES] = {s0, s1, s2, s3};
   void* const out[MAX_PLANES] = {o0, o1, o2, o3};
   const int32_t x = unbias_output ? BIAS : 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (nplanes) {
     case 1: return launch_terminal<1>(src, src_len, btbl, nb, out, out_len,
-                                      scratch, nlex, x, cap_rows, class_id,
-                                      st);
+                                      scratch, soff, scratch_len, nlex, x,
+                                      cap_rows, class_id, st);
     case 2: return launch_terminal<2>(src, src_len, btbl, nb, out, out_len,
-                                      scratch, nlex, x, cap_rows, class_id,
-                                      st);
+                                      scratch, soff, scratch_len, nlex, x,
+                                      cap_rows, class_id, st);
     case 3: return launch_terminal<3>(src, src_len, btbl, nb, out, out_len,
-                                      scratch, nlex, x, cap_rows, class_id,
-                                      st);
+                                      scratch, soff, scratch_len, nlex, x,
+                                      cap_rows, class_id, st);
     case 4: return launch_terminal<4>(src, src_len, btbl, nb, out, out_len,
-                                      scratch, nlex, x, cap_rows, class_id,
-                                      st);
+                                      scratch, soff, scratch_len, nlex, x,
+                                      cap_rows, class_id, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -33,7 +33,7 @@ _SIGNATURES = {
     "kv4_route_level": _PLANES + [_LL, _P, _P, _P, _P, _P] + _PLANES
     + [_LL, _I, _I, _I, _I, _I, _P],
     "kv4_terminal_write": _PLANES + [_LL, _P, _I] + _PLANES
-    + [_LL, _P, _I, _I, _I, _I, _I, _P],
+    + [_LL, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "kv4_splice_runs": _PLANES + [_LL, _P, _I] + _PLANES
     + [_LL, _I, _I, _I, _P],
 }

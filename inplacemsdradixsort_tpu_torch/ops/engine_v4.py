@@ -161,7 +161,7 @@ def _dev_geometry(n: int, nplanes: int, cfg: SortConfig,
     if cfg.use_sample_splitters and nb_want >= 16:
         prefix_bits = min(8, max(2, int(math.log2(max(nb_want // 4, 4)))))
         nrad = 1 << prefix_bits
-    est_nb = int(nb_want * 1.3) + nrad + 2
+    est_nb = _est_buckets(nb_want, nrad)
     if cfg.v3_rmax:
         rmax = cfg.v3_rmax
         two_level = est_nb > max(1, (3 * rmax) // 4)
@@ -205,6 +205,23 @@ def _dev_geometry(n: int, nplanes: int, cfg: SortConfig,
         cap_S=max(1, S // nb_want), nb_want=nb_want,
         two_level=two_level,
     )
+
+
+def _est_buckets(nb_want: int, nrad: int) -> int:
+    """The planner's estimate of the final buckets: the target count
+    with sample slack, plus the radix-equidistant bounds."""
+    return int(nb_want * 1.3) + nrad + 2
+
+
+def bucket_room(n: int, nplanes: int, cfg: SortConfig):
+    """(buckets the planner asks for at n elements, buckets v4's
+    topology can hold: rmax with one level, rmax^2 with two).  The plan
+    is clamped to the topology, so where the first exceeds the second the
+    buckets outgrow the XL class and the retry ladder cannot help
+    (ROADMAP.md C9)."""
+    g = _dev_geometry(n, nplanes, cfg)
+    return (_est_buckets(g.nb_want, g.nrad),
+            g.rmax * g.rmax if g.two_level else g.rmax)
 
 
 def _l1_meta_np(g: _GeomV4) -> np.ndarray:

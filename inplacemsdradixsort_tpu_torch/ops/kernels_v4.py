@@ -44,6 +44,9 @@ CHUNK_ROWS = 64        # arena gap after each child (kept: the arena layout
 BIAS = -0x80000000
 SENT = 0x7FFFFFFF
 MAX_PLANES = 4
+# the terminal kernel's shared-memory tile in tuples, by plane count
+# (``term_tile`` in csrc/kernels_v4.cu)
+TERM_TILE = {1: 16384, 2: 8192, 3: 8192, 4: 4096}
 
 # launches of each kernel since the last reset (plain versions not counted)
 LAUNCHES = {"hist_level": 0, "route_level": 0, "terminal_write": 0,
@@ -247,6 +250,19 @@ def _selected(btbl, class_id):
     return bt, sel
 
 
+def _scratch_offsets(btbl, src_len, cap_rows, class_id, tile):
+    """Where each bucket's segment lies in the terminal's global scratch
+    ((nb,) int64 element offsets, packed over the buckets of this launch
+    that the shared tile cannot hold), and the segments' total length,
+    which is fetched to the host."""
+    bt, sel = _selected(btbl, class_id)
+    m = (bt[:, 1].clamp(max=cap_rows) * LANES).clamp(
+        max=src_len - bt[:, 0] * LANES).clamp(min=0)
+    size = torch.where(sel & (bt[:, 3] == 0) & (m > tile), m, 0)
+    ends = torch.cumsum(size, 0)
+    return (ends - size).contiguous(), int(ends[-1].item())
+
+
 def terminal_write_ref(srcs, btbl, outs, cap_rows, class_id=None,
                        nlex=None, unbias_output=True):
     srcs, outs = tuple(srcs), tuple(outs)
@@ -423,10 +439,12 @@ def terminal_write(srcs: Sequence[torch.Tensor], btbl: torch.Tensor,
     bound by the passes a bitonic network makes over global memory.
     Design: one block per bucket, an all-ascending bitonic network over
     the bucket virtually padded with all-SENT tuples to a power of two;
-    steps with a partner distance below the shared-memory tile (16K
-    tuples for one plane, 8K for two or three, 4K for four: at most
-    96 KiB) run in shared memory, longer ones on a global scratch copy
-    of the bucket (one per plane).  A compare reads plane 0 and only
+    steps with a partner distance below the shared-memory tile
+    (``TERM_TILE``: 16K tuples for one plane, 8K for two or three, 4K
+    for four, at most 96 KiB) run in shared memory, longer ones on a
+    global scratch copy of the bucket (one per plane).  The scratch holds
+    only this launch's buckets that exceed the tile, packed; sizing it
+    costs one device sync per call.  A compare reads plane 0 and only
     reads the next plane on a tie.  One launch per capacity class, as
     ``_finish`` calls it, so that the class capacity clamps exactly as
     on the reference.  Mode 1 never occurs with payload planes (the
@@ -452,12 +470,14 @@ def terminal_write(srcs: Sequence[torch.Tensor], btbl: torch.Tensor,
                                   nlex, unbias_output)
     nb = btbl.shape[0]
     if nb:
-        scratch = torch.empty((len(srcs), srcs[0].numel()),
+        soff, nscratch = _scratch_offsets(btbl, srcs[0].numel(), cap_rows,
+                                          class_id, TERM_TILE[len(srcs)])
+        scratch = torch.empty((len(srcs), max(nscratch, 1)),
                               dtype=torch.int32, device=dev)
         _launch("terminal_write", "kv4_terminal_write", dev,
                 *_pp(srcs), srcs[0].numel(), _p(btbl), nb, *_pp(outs),
-                outs[0].numel(), _p(scratch), len(srcs), nlex,
-                int(unbias_output), cap_rows,
+                outs[0].numel(), _p(scratch), _p(soff), scratch.shape[1],
+                len(srcs), nlex, int(unbias_output), cap_rows,
                 -1 if class_id is None else int(class_id))
     return outs
 

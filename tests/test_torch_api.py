@@ -216,10 +216,24 @@ def test_size_switch_names_v5(monkeypatch):
     memory raises naming ROADMAP A10 (v5 is not ported)."""
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (1 << 29, 1 << 30))
-    x = torch.empty(20_000_000, device="meta")
-    api._check_fits(x, 2)      # 4.3 * 4 B * 2 planes * 2e7 = 688 MB: fits
+    api.check_fits(20_000_000, 2)  # 4.3 * 4 B * 2 planes * 2e7 = 688 MB
     with pytest.raises(NotImplementedError, match="A10"):
-        api._check_fits(x, 3)  # 1.03 GB > 0.75 * 1 GiB
+        api.check_fits(20_000_000, 3)  # 1.03 GB > 0.75 * 1 GiB
+
+
+def test_size_switch_topology(monkeypatch):
+    """Bytes are not all: 2^30 (u32 key, u64 rid) pairs fit an 80 GB
+    card's memory but ask for more buckets than v4's rmax^2 topology
+    holds, so engine='auto' raises instead of overflowing the XL class;
+    keys only, 2^30 fits both."""
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (80 << 30, 80 << 30))
+    wanted, room = te.bucket_room(1 << 30, 3, SortConfig())
+    assert wanted > room == 96 * 96
+    with pytest.raises(NotImplementedError, match="C9.*A10"):
+        api.check_fits(1 << 30, 3)
+    api.check_fits(1 << 29, 3)
+    api.check_fits(1 << 30, 1)
 
 
 def test_check_payload_shards_and_errors():

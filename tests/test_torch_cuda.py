@@ -254,6 +254,32 @@ def test_terminal_global_path(cuda, occ):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("nplanes", [1, 3])
+def test_terminal_scratch_several_large_buckets(cuda, nplanes):
+    """One launch with several buckets above the shared tile, one below
+    it and one of another class: each large bucket sorts in its own
+    packed scratch segment."""
+    rng = np.random.default_rng(40 + nplanes)
+    occs = np.array([300, 40, 1000, 129, 500])
+    src_row = np.cumsum(occs) - occs
+    real = occs * LANES - 3
+    off = np.cumsum(real) - real
+    z = np.zeros(len(occs), np.int64)
+    btbl = torch.from_numpy(np.stack(
+        [src_row, occs, real, z, z, off, [0, 0, 0, 0, 1], z],
+        1).astype(np.int32))
+    srcs = tuple(torch.from_numpy(rng.integers(
+        -2**31, 2**31, int(occs.sum()) * LANES).astype(np.int32) // 4096)
+        for _ in range(nplanes))
+    outs = tuple(torch.zeros(int(real.sum()), dtype=torch.int32)
+                 for _ in range(nplanes))
+    want = kv4.terminal_write_ref(srcs, btbl, tuple(o.clone() for o in outs),
+                                  4096, 0)
+    got = kv4.terminal_write(tuple(s.to(cuda) for s in srcs), btbl.to(cuda),
+                             tuple(o.to(cuda) for o in outs), 4096, 0)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
 def test_wrappers_raise_on_mixed_devices(cuda):
     src = torch.zeros(LANES, dtype=torch.int32, device=cuda)
     meta = torch.zeros(6, dtype=torch.int32)

@@ -314,6 +314,33 @@ def test_terminal_write_rejects_fill_with_payload():
                           class_id=len(caps) - 1)
 
 
+def _scratch_table(occs, classes, modes):
+    """A terminal table of buckets ``occs`` rows long, packed from row 0."""
+    occs = np.array(occs)
+    src_row = np.cumsum(occs) - occs
+    real = occs * LANES - 3
+    off = np.cumsum(real) - real
+    z = np.zeros(len(occs), np.int64)
+    return _t(np.stack([src_row, occs, real, modes, z, off, classes, z],
+                       1).astype(np.int32)), int(occs.sum()) * LANES
+
+
+@pytest.mark.parametrize("cap_rows", [4096, 200])
+def test_terminal_scratch_packs_large_buckets(cap_rows):
+    """The terminal's global scratch holds, packed in table order, only
+    the sorted buckets of the launch's class that the shared tile cannot
+    (16K tuples = 128 rows, one plane), each as long as the class
+    capacity lets it be; value-fill buckets and other classes take none."""
+    btbl, src_len = _scratch_table([300, 40, 1000, 129, 500, 900],
+                                   [0, 0, 0, 0, 1, 0], [0, 0, 0, 0, 0, 1])
+    soff, total = tk._scratch_offsets(btbl, src_len, cap_rows, 0,
+                                      tk.TERM_TILE[1])
+    m = [min(o, cap_rows) * LANES for o in (300, 1000, 129)]
+    assert total == sum(m)
+    assert soff.dtype == torch.int64
+    assert soff[[0, 2, 3]].tolist() == [0, m[0], m[0] + m[1]]
+
+
 def _splice_case(seed, nplanes):
     """Runs of a routed arena: row-aligned, ``occ`` rows each (some above
     max_occ, some empty), real counts below occ*128, out offsets
