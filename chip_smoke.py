@@ -16,27 +16,41 @@ lexicographic by (key, rid)):
   2^22 uniform (one level, rmax 96), 2^24 with 30% 0xFFFFFFFF; equal
   mod-2^64 checksums; no small-n or overflow fallback on the uniform
   inputs;
-- payload: (u32 key, u64 rid) pairs at 2^28 and at 2^30, or at 2^29
-  where ``api.check_fits`` says v4 cannot take 2^30 (u64 key, u64 rid) at
-  2^27; no fallback;
+- payload: (u32 key, u64 rid) pairs at 2^28 and 2^29, (u64 key, u64
+  rid) at 2^27; no fallback;
 - deep tier: 2^26 u64 keys with 8 distinct high words, and 2^26 (u32
   key, u32 rid) pairs with half the keys one value; each reports
-  ``FALLBACK_STATS["deep"] >= 1`` and ``["overflow"] == 0``.
+  ``FALLBACK_STATS["deep"] >= 1`` and ``["overflow"] == 0``;
+- the in-place v5 engine: 2^30 (u32 key, u64 rid) pairs through
+  ``engine="auto"``, which ``api.check_fits`` hands to v5 (v4's topology
+  holds too few buckets); 2^28 uniform keys on v5 beside v4; 2^24 keys
+  with 30% 0xFFFFFFFF (value-fill regions and children); 2^24 pairs with
+  half the keys one value (retry, then the deep tier); and
+  ``sort_v5_from_chunks(raw=True)`` at 2^26 keys, checked slab by slab
+  with ``raw_check_2d``.  The 2^30 sort needs about 60 GB of the card
+  while it is checked (inputs, W and two copies of W), about 36 GB
+  without the check.
 
 The first sort of every input is checked launch by launch: each call of
-``hist_level``, ``route_level``, ``terminal_write`` and ``splice_runs``
-in it (1-4 planes, at the shapes that path gives them) is held against
-the kernel's plain PyTorch version on the same CUDA tensors, exactly
-(route arenas through ``canonical_runs``).  The plain version replays
-the call in chunks of at most ``CHECK_CHUNK`` elements (tiles, buckets
-or runs), so the check fits beside the sort at every size.  Each call's
+``hist_level``, ``route_level``, ``terminal_write``, ``splice_runs``,
+``seqroute_level`` and ``block_permute`` in it (1-4 planes, at the
+shapes that path gives them) is held against the kernel's plain PyTorch
+version on the same CUDA tensors, exactly (route arenas through
+``canonical_runs``; seqroute's W region by region through
+``canonical_regions``, since the order inside a stream is not part of
+its contract; W is copied before the in-place launches).  The plain
+version replays the call in chunks of at most ``CHECK_CHUNK`` elements
+(tiles, buckets, runs or cycles), so the check fits beside the sort at
+every size.  Each call's
 kernel time (CUDA events around the wrapper), plain time (host clock,
 synchronised) and bound (the bytes it must move, each input element read
 once and each output written once, at the H100 SXM's 3.35 TB/s) are
-summed per kernel.  Then: the port's peak memory in a second sort, its
+summed per kernel, and for ``block_permute``, whose function one PyTorch
+call computes out of place, the time of ``index_select`` of W's blocks
+on the same copy of W (its library time; the port never calls it).  Then: the port's peak memory in a second sort, its
 time against what a user would otherwise run (``torch.sort`` on the
 keys; stable, plus a gather of the rids), and each kernel's time inside
-one 2^28 sort, keys only and pairs.
+one 2^28 sort, keys only and pairs, and one 2^30 v5 sort of pairs.
 
 Per-call check lines go to ``chiprun_out/chip_smoke_calls.log``; stdout
 has one line per (input, kernel, plane count).  Any failure raises
@@ -45,6 +59,7 @@ has one line per (input, kernel, plane count).  Any failure raises
 non-zero before printing any result.
 """
 
+import dataclasses
 import inspect
 import json
 import os
@@ -52,6 +67,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -73,22 +89,38 @@ CASES = [("uniform 2^28", 28, 0.0, True, 48, 2048, True),
 # (label, log2 n, key kind, rid kind); the first is timed kernel by kernel
 PAYLOAD_CASES = [("pairs u32+u64 2^28", 28, "u32", "u64"),
                  ("u64+u64 2^27", 27, "u64", "u64")]
-BIG_PAIRS_LOGN = 30                # BASELINE.md's size; 2^29 if v4 can't
+BIG_PAIRS_LOGN = 29                # v4's largest pairs (2^30 goes to v5)
 # (label, log2 n, kind): inputs whose buckets no plane-0 bound can shrink
 DEEP_CASES = [("deep u64 few-hi 2^26", 26, "few_hi"),
               ("deep heavy pairs 2^26", 26, "heavy_pairs")]
+# v5 warm-up sorts (log2 n, key kind, rid kind), run with engine="v5"
+WARMUP_V5 = [(22, "u32", None), (22, "u32", "u64")]
+V5_PAIRS_LOGN = 30                 # BASELINE.md's shape and size
+V5_KEYS_LOGN = 28                  # keys on v5 beside v4
+V5_SMALL_LOGN = 24                 # value fill; retry into the deep tier
+V5_RAW_LOGN = 26                   # sort_v5_from_chunks(raw=True)
 KERNELS = {
-    # name: (source, the TPU kernel's pallas_call it replaces)
-    "hist_level": ("inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
+    # name: (wrapper module, source, the TPU kernel's pallas_call)
+    "hist_level": ("kv4", "inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
                    "inplacemsdradixsort_tpu/ops/kernels_v4.py:168"),
-    "route_level": ("inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
+    "route_level": ("kv4",
+                    "inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
                     "inplacemsdradixsort_tpu/ops/kernels_v4.py:431"),
-    "terminal_write": ("inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
+    "terminal_write": ("kv4",
+                       "inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
                        "inplacemsdradixsort_tpu/ops/kernels_v4.py:765"),
-    "splice_runs": ("inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
+    "splice_runs": ("kv4",
+                    "inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
                     "inplacemsdradixsort_tpu/ops/kernels_v4.py:997"),
+    "seqroute_level": ("kv5",
+                       "inplacemsdradixsort_tpu_torch/csrc/kernels_v5.cu",
+                       "inplacemsdradixsort_tpu/ops/kernels_v5.py:307"),
+    "block_permute": ("kv5",
+                      "inplacemsdradixsort_tpu_torch/csrc/kernels_v5.cu",
+                      "inplacemsdradixsort_tpu/ops/kernels_v5.py:501"),
 }
 LANES = 128
+BLK = 256 * LANES                  # v5's exchange block, in elements
 
 
 # ------------------------------------------------------------- data
@@ -271,10 +303,10 @@ def _tile_chunks(a):
             for t0 in range(0, a["ntiles"], per)]
 
 
-def check_hist(kv4, a, out, _):
+def check_hist(m, a, out, _):
     err = ms = 0
     for t0, t1 in _tile_chunks(a):
-        want, t = _plain(kv4.hist_level_ref, a["src"], a["meta"][3 * t0:],
+        want, t = _plain(m.kv4.hist_level_ref, a["src"], a["meta"][3 * t0:],
                          a["bounds"], t1 - t0, a["pitch"], a["rmax"],
                          a["bias_input"])
         ms += t
@@ -282,7 +314,7 @@ def check_hist(kv4, a, out, _):
     return err, ms
 
 
-def check_route(kv4, a, out, _):
+def check_route(m, a, out, _):
     """Tile chunk by tile chunk, the chunk's runs are laid out packed
     (same order, every run at the next free row), both by the plain
     version and by gathering them from the kernel's arenas, and compared
@@ -300,37 +332,37 @@ def check_route(kv4, a, out, _):
             continue
         packed = torch.where(d >= 0, torch.cumsum(rows, 0) - rows, -1) \
             .to(torch.int32).view(t1 - t0, rmax)
-        want, t = _plain(kv4.route_level_ref, a["srcs"], a["meta"][3 * t0:],
+        want, t = _plain(m.kv4.route_level_ref, a["srcs"], a["meta"][3 * t0:],
                          a["bounds"], c, packed, padv[t0:t1].contiguous(),
                          total, t1 - t0, a["pitch"], rmax, a["bias_input"])
         ms += t
         live = rows > 0
-        rix = kv4._spans(d[live], rows[live])
+        rix = m.kv4._spans(d[live], rows[live])
         got = tuple(x.reshape(-1, LANES)[rix] for x in out)
-        err = max(err, _err(kv4.canonical_runs(got, packed, c, total),
-                            kv4.canonical_runs(want, packed, c, total)))
+        err = max(err, _err(m.kv4.canonical_runs(got, packed, c, total),
+                            m.kv4.canonical_runs(want, packed, c, total)))
     return err, ms
 
 
-def check_terminal(kv4, a, out, before):
+def check_terminal(m, a, out, before):
     """Bucket group by bucket group, the plain version writes into the
     copy of the outputs taken before the launch."""
-    bt, sel = kv4._selected(a["btbl"], a["class_id"])
-    m = bt[:, 1].clamp(min=0, max=a["cap_rows"]) * LANES
+    bt, sel = m.kv4._selected(a["btbl"], a["class_id"])
+    size = bt[:, 1].clamp(min=0, max=a["cap_rows"]) * LANES
     gid, ngroups = _groups(torch.where(
-        sel, torch.where(bt[:, 3] == 0, m, bt[:, 2]), 0))
+        sel, torch.where(bt[:, 3] == 0, size, bt[:, 2]), 0))
     ms = 0
     for k in range(ngroups):
         btk = a["btbl"].clone()
         btk[:, 2] = torch.where(sel & (gid == k), btk[:, 2], 0)
-        _, t = _plain(kv4.terminal_write_ref, a["srcs"], btk, before,
+        _, t = _plain(m.kv4.terminal_write_ref, a["srcs"], btk, before,
                       a["cap_rows"], a["class_id"], a["nlex"],
                       a["unbias_output"])
         ms += t
     return _err(out, before), ms
 
 
-def check_splice(kv4, a, out, _):
+def check_splice(m, a, out, _):
     """Run group by run group, on the elements those runs cover."""
     bt = a["btbl"].long()
     real = torch.minimum(bt[:, 2], bt[:, 1].clamp(max=a["max_occ"])
@@ -341,17 +373,103 @@ def check_splice(kv4, a, out, _):
         ink = gid == k
         btk = a["btbl"].clone()
         btk[:, 2] = torch.where(ink, btk[:, 2], 0)
-        want, t = _plain(kv4.splice_runs_ref, a["srcs"], btk, a["out_n"],
+        want, t = _plain(m.kv4.splice_runs_ref, a["srcs"], btk, a["out_n"],
                          a["max_occ"], a["unbias_output"])
         ms += t
-        pos = kv4._spans(bt[ink, 5], real[ink])
+        pos = m.kv4._spans(bt[ink, 5], real[ink])
         err = max(err, _err(tuple(o[pos] for o in out),
                             tuple(w[pos] for w in want)))
     return err, ms
 
 
+def _v5_slots(m, a, nslots):
+    return m.kv5.block_slots(a["cnt_tbl"], a["base_tbl"], a["slot_tbl"],
+                             a["ntiles"], a["pitch"], a["rmax"], nslots)
+
+
+def check_seqroute(m, a, out, before):
+    """The plain version replays the call tile group by tile group,
+    reading the copy of W taken before the launch and writing a second
+    copy; then every region (range d's stream, gathered from its blocks)
+    is compared through ``canonical_regions``: its first cnt[d] tuples as
+    a sorted multiset, the pads after them exactly.  Slots outside the
+    streams must be as they were."""
+    nt, pitch, rmax = a["ntiles"], a["pitch"], a["rmax"]
+    want = _clone(before)
+    per = max(1, CHECK_CHUNK // (pitch * LANES))
+    ms = 0
+    for t0 in range(0, nt - 1, per):
+        _, t = _plain(m.kv5.seqroute_level_ref, before, a["meta"],
+                      a["cnt_tbl"], a["base_tbl"], a["slot_tbl"],
+                      a["padv_tbl"], nt, pitch, rmax, a["nlex"],
+                      a["bias_input"], want, (t0, min(nt - 1, t0 + per)))
+        ms += t
+    nslots = out[0].numel() // m.kv5.BLK + rmax
+    boff, bslot = _v5_slots(m, a, nslots)
+    total = a["base_tbl"].reshape(nt, rmax)[-1].long()
+    err = 0
+    for d in range(rmax):
+        (_, g), = m.kv5.canonical_regions(out, boff, bslot, total, [d])
+        (_, w), = m.kv5.canonical_regions(want, boff, bslot, total, [d])
+        err = max(err, _err(g, w))
+    used = torch.zeros(nslots + 1, dtype=torch.bool, device=bslot.device)
+    used[torch.where(bslot >= 0, bslot, nslots)] = True
+    idle = ~used[: out[0].numel() // m.kv5.BLK]
+    for g, b in zip(out, before):
+        gb, bb = m.kv5.blocks_of(g), m.kv5.blocks_of(b)
+        tail = gb.numel()
+        err = max(err, _err((gb[idle], g.view(-1)[tail:]),
+                            (bb[idle], b.view(-1)[tail:])))
+    return err, ms
+
+
+def check_permute(m, a, out, before):
+    """Cycle group by cycle group, the plain version moves the blocks of
+    the copy of W taken before the launch (cycles are independent, so
+    each group is exact on its own); W must then be bitwise equal."""
+    off = a["cyc_off"].long().cpu()
+    moved = off[1:] - off[:-1]
+    gid, ngroups = _groups(moved * m.kv5.BLK)
+    first = torch.searchsorted(gid, torch.arange(ngroups + 1)).tolist()
+    ms = 0
+    for k in range(ngroups):
+        c0, c1 = first[k], first[k + 1]
+        o0, o1 = int(off[c0]), int(off[c1])
+        sub_off = (a["cyc_off"][c0:c1 + 1] - o0).contiguous()
+        _, t = _plain(m.kv5.block_permute_ref, before, sub_off,
+                      a["cyc_slots"][o0:o1])
+        ms += t
+    return _err(out, before), ms
+
+
+def library_permute(m, a, out, before):
+    """One PyTorch call per plane computes block_permute's function out
+    of place: ``index_select`` of W's blocks by ``src_of_final``, built
+    from the cycles (slot cyc[i] takes the block of slot cyc[i+1]).  Its
+    host-clock ms on the copy of W taken before the launch, summed over
+    the planes; each result must equal the kernel's blocks."""
+    off = a["cyc_off"].long()
+    slots = a["cyc_slots"].long()
+    nslots = m.kv5.blocks_of(before[0]).shape[0]
+    src = torch.arange(nslots, device=slots.device)
+    if slots.numel():
+        nxt = torch.arange(1, slots.numel() + 1, device=slots.device)
+        nxt[off[1:] - 1] = off[:-1]
+        src[slots] = slots[nxt]
+    ms = 0
+    for g, b in zip(out, before):
+        lib, t = _plain(torch.index_select, m.kv5.blocks_of(b), 0, src)
+        ms += t
+        assert torch.equal(lib, m.kv5.blocks_of(g)), "index_select differs"
+        del lib
+    return ms
+
+
 CHECKS = {"hist_level": check_hist, "route_level": check_route,
-          "terminal_write": check_terminal, "splice_runs": check_splice}
+          "terminal_write": check_terminal, "splice_runs": check_splice,
+          "seqroute_level": check_seqroute, "block_permute": check_permute}
+LIBRARY = {"block_permute": library_permute}   # kernels with a one-call
+                                                # PyTorch equivalent
 
 
 def _live(meta, ntiles, pitch):
@@ -391,68 +509,108 @@ def call_bytes(name, a):
                 + bt.numel())
 
 
+def call_bytes_v5(name, a):
+    """``call_bytes`` of the in-place v5 kernels: seqroute reads every
+    live element and writes every range's blocks (its elements and the
+    pads of its open block), block_permute reads and writes every block
+    it moves, every plane."""
+    if name == "seqroute_level":
+        nt, rmax = a["ntiles"], a["rmax"]
+        m = a["meta"][: 4 * nt].view(nt, 4).long()
+        live = int(m[:, 1].clamp(0, a["pitch"] * LANES).sum().item())
+        total = a["base_tbl"].reshape(nt, rmax)[-1].long()
+        wrote = int(((total // BLK + 1) * BLK).sum().item())
+        return 4 * (len(a["w"]) * (live + wrote) + 4 * nt * rmax + 4 * nt)
+    moved = a["cyc_slots"].numel()
+    return 4 * (2 * len(a["w"]) * moved * BLK + a["cyc_off"].numel()
+                + moved)
+
+
 class Checker:
     """While ``run`` drives a sort, every call of the kernel wrappers
     launches the kernel as the path asked, then replays the call on its
     plain version and requires equality."""
 
-    def __init__(self, kv4, wrappers, log):
-        self.kv4, self.wrappers, self.log = kv4, wrappers, log
+    def __init__(self, mods, wrappers, log):
+        self.mods, self.wrappers, self.log = mods, wrappers, log
         self.totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                  max_abs_err=0) for name in wrappers}
+                                  library_ms=0.0, max_abs_err=0)
+                       for name in wrappers}
         self.by_input = {}      # (input, kernel, planes) -> sums
+
+    def _module(self, name):
+        return getattr(self.mods, KERNELS[name][0])
 
     def run(self, label, fn):
         self.label = label
         for name in self.wrappers:
-            setattr(self.kv4, name, self._checked(name))
+            setattr(self._module(name), name, self._checked(name))
         try:
             return fn()
         finally:
             for name, f in self.wrappers.items():
-                setattr(self.kv4, name, f)
+                setattr(self._module(name), name, f)
             for (lbl, name, planes), r in self.by_input.items():
                 if lbl == label:
                     print(f"check [{label}] {name} planes={planes}: "
                           f"{r['calls']} calls, max_abs_err {r['err']}, "
                           f"kernel {r['ms']:.3f} ms, plain {r['pms']:.3f} "
-                          f"ms, bound {r['bound']:.4f} ms")
+                          f"ms, bound {r['bound']:.4f} ms"
+                          + (f", library {r['lib']:.3f} ms"
+                             if name in LIBRARY else ""))
 
     def _checked(self, name):
         kern = self.wrappers[name]
+        inplace = {"terminal_write": "outs", "seqroute_level": "w",
+                   "block_permute": "w"}.get(name)
 
         def call(*args, **kw):
             a = named(kern, args, kw)
-            before = (_clone(tuple(a["outs"])) if name == "terminal_write"
-                      else None)
+            before = _clone(tuple(a[inplace])) if inplace else None
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             out = kern(*args, **kw)
             ev[1].record()
             torch.cuda.synchronize()
             ms = ev[0].elapsed_time(ev[1])
-            err, pms = CHECKS[name](self.kv4, a, out, before)
+            lms = (LIBRARY[name](self.mods, a, out, before)
+                   if name in LIBRARY else None)
+            err, pms = CHECKS[name](self.mods, a, out, before)
             del before
-            bound = call_bytes(name, a) / HBM_BYTES_PER_S * 1e3
-            planes = 1 if name == "hist_level" else len(a["srcs"])
+            bound = (call_bytes_v5(name, a) if KERNELS[name][0] == "kv5"
+                     else call_bytes(name, a)) / HBM_BYTES_PER_S * 1e3
+            planes = 1 if name == "hist_level" else len(
+                a["w"] if "w" in a else a["srcs"])
             extra = {k: a[k] for k in ("ntiles", "rmax", "cap_rows",
                                        "class_id", "nlex") if k in a}
+            if name == "block_permute":
+                off = a["cyc_off"].long()
+                extra = dict(cycles=off.numel() - 1,
+                             moved=a["cyc_slots"].numel(),
+                             longest=int((off[1:] - off[:-1]).max().item())
+                             if off.numel() > 1 else 0)
             print(f"[{self.label}] {name} planes={planes} {extra}: "
                   f"max_abs_err {err} kernel {ms:.4f} ms plain {pms:.4f} "
-                  f"ms bound {bound:.5f} ms", file=self.log)
+                  f"ms bound {bound:.5f} ms library {lms} ms",
+                  file=self.log)
             t = self.totals[name]
             t["max_abs_err"] = max(t["max_abs_err"], err)
             t["ms"] += ms
             t["plain_ms"] += pms
             t["bound_ms"] += bound
+            t["library_ms"] += lms or 0.0
             r = self.by_input.setdefault(
                 (self.label, name, planes),
-                dict(calls=0, err=0, ms=0.0, pms=0.0, bound=0.0))
+                dict(calls=0, err=0, ms=0.0, pms=0.0, bound=0.0, lib=0.0))
             r["calls"] += 1
             r["err"] = max(r["err"], err)
             r["ms"] += ms
             r["pms"] += pms
             r["bound"] += bound
+            r["lib"] += lms or 0.0
+            if name == "block_permute":
+                print(f"check [{self.label}] block_permute {extra}: "
+                      f"kernel {ms:.3f} ms, index_select {lms:.3f} ms")
             assert err == 0, (f"{name} ({planes} planes, {extra}) on "
                               f"{self.label} disagrees with its plain "
                               f"version")
@@ -464,10 +622,13 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     from inplacemsdradixsort_tpu_torch import SortConfig, sort
-    from inplacemsdradixsort_tpu_torch.api import check_fits
+    from inplacemsdradixsort_tpu_torch.api import check_fits, held_bytes
     from inplacemsdradixsort_tpu_torch.ops import _build, engine_v4
+    from inplacemsdradixsort_tpu_torch.ops import engine_v5
     from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as kv4
-    from inplacemsdradixsort_tpu_torch.utils.checking import checksum
+    from inplacemsdradixsort_tpu_torch.ops import kernels_v5 as kv5
+    from inplacemsdradixsort_tpu_torch.utils.checking import (
+        checksum, raw_check_2d)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -481,25 +642,37 @@ def main():
 
     # ------------------------------------------------------------ build
     t0 = time.perf_counter()
-    _build.build(verbose=True)
-    _build.library()
+    _build.build(verbose=True)          # one nvcc per source, in parallel
+    for name in _build.SOURCES:
+        _build.library(name)
     print(f"build: {time.perf_counter() - t0:.1f} s")
     cfg = SortConfig()
-    wrappers = {name: getattr(kv4, name) for name in KERNELS}
+    v5cfg = dataclasses.replace(cfg, engine="v5")
+    mods = types.SimpleNamespace(kv4=kv4, kv5=kv5)
+    wrappers = {name: getattr(getattr(mods, mod), name)
+                for name, (mod, _, _) in KERNELS.items()}
     os.makedirs(os.path.dirname(CALL_LOG), exist_ok=True)
     log = open(CALL_LOG, "w")
-    checker = Checker(kv4, wrappers, log)
+    checker = Checker(mods, wrappers, log)
 
     # ---------------------------------------------------------- warm-up
     for logn, kk, rk in WARMUP:
         keys, rids = make_input(1 << logn, kk, rk, SEED - logn, dev)
         sort(keys, rids, config=cfg)
         del keys, rids
+    for logn, kk, rk in WARMUP_V5:
+        keys, rids = make_input(1 << logn, kk, rk, SEED - 7 - logn, dev)
+        sort(keys, rids, config=v5cfg)
+        del keys, rids
     torch.cuda.synchronize()
 
     # ------------------------------------------------------ main paths
     launches = dict.fromkeys(KERNELS, 0)
     kernel_ms = {}
+
+    def set_wrappers(make):
+        for name, (mod, _, _) in KERNELS.items():
+            setattr(getattr(mods, mod), name, make(name))
 
     def timed(name):
         def run(*args, **kw):
@@ -515,8 +688,7 @@ def main():
     def breakdown(label, fn):
         """Each kernel's CUDA-event time inside one run of ``fn``."""
         kernel_ms.clear()
-        for name in KERNELS:
-            setattr(kv4, name, timed(name))
+        set_wrappers(timed)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -524,8 +696,7 @@ def main():
             torch.cuda.synchronize()
             total = time.perf_counter() - t0
         finally:
-            for name, f in wrappers.items():
-                setattr(kv4, name, f)
+            set_wrappers(wrappers.get)
         for name, evs in kernel_ms.items():
             each = [a.elapsed_time(b) for a, b in evs]
             print(f"main {label} {name}: {len(each)} calls, "
@@ -533,13 +704,17 @@ def main():
                   f"({', '.join(f'{e:.3f}' for e in each)})")
         print(f"main {label} one sort: {total * 1e3:.3f} ms")
 
+    def counts():
+        return {**kv4.LAUNCHES, **kv5.LAUNCHES}
+
     def path(label, names):
         """Open a main path: counts to 0; returns the closing check."""
         kv4.reset_launches()
+        kv5.reset_launches()
         engine_v4.reset_fallback_stats()
 
         def close():
-            got = dict(kv4.LAUNCHES)
+            got = counts()
             print(f"main {label} launches: {got}")
             for name in names:
                 assert got[name] > 0, f"{name} was not launched on {label}"
@@ -547,16 +722,33 @@ def main():
                 launches[name] += got[name]
         return close
 
-    def run_case(label, keys, rids, timed_runs, expect):
+    def peak_of(fn):
+        """Peak device memory of ``fn()`` above what was allocated
+        before it, in GiB."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+
+    def run_case(label, keys, rids, timed_runs, expect, config=cfg,
+                 engine=None, also=None):
         """Sort on the card with every launch checked, compare with the
         torch reference (computed first and kept on the host), report
-        fallbacks, then peak memory and times of unchecked sorts."""
+        fallbacks, then peak memory and times of unchecked sorts.
+        ``engine="v5"`` asserts that the checked sort ran v5's kernels;
+        ``also`` names another config to time and measure beside it."""
         ref = torch_reference(keys, rids)
         ref = tuple(None if t is None else t.cpu() for t in ref)
         torch.cuda.synchronize()
         before = dict(engine_v4.FALLBACK_STATS)
-        res = checker.run(label, lambda: sort(keys, rids, config=cfg))
+        seq0 = kv5.LAUNCHES["seqroute_level"]
+        res = checker.run(label, lambda: sort(keys, rids, config=config))
+        ran_v5 = kv5.LAUNCHES["seqroute_level"] > seq0
         stats = {k: engine_v4.FALLBACK_STATS[k] - before[k] for k in before}
+        if engine is not None:
+            assert ran_v5 == (engine == "v5"), (label, engine, ran_v5)
         assert_equal(res.keys, ref[0], label)
         if rids is not None:
             assert_equal(res.rids, ref[1], label + " rids")
@@ -564,17 +756,19 @@ def main():
             assert checksum(res.keys) == checksum(keys), label
         del res, ref
         expect(stats)
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        sort(keys, rids, config=cfg)
-        peak = torch.cuda.max_memory_allocated(dev) - base
+        peak = peak_of(lambda: sort(keys, rids, config=config))
         print(f"main {label}: bitwise equal to the torch reference, "
-              f"fallbacks {stats}, port peak {peak / 2**30:.3f} GiB over "
-              f"its inputs")
+              f"engine {'v5' if ran_v5 else 'v4'}, fallbacks {stats}, port "
+              f"peak {peak:.3f} GiB over its inputs")
+        fns = {"port": lambda: sort(keys, rids, config=config),
+               "torch": lambda: library_sort(keys, rids)}
+        if also is not None:
+            name, other = also
+            fns[name] = lambda: sort(keys, rids, config=other)
+            print(f"main {label} {name}: peak "
+                  f"{peak_of(fns[name]):.3f} GiB over its inputs")
         if timed_runs:
-            t = host_ms({"port": lambda: sort(keys, rids, config=cfg),
-                         "torch": lambda: library_sort(keys, rids)},
-                        rounds=timed_runs)
+            t = host_ms(fns, rounds=timed_runs)
             n = keys.shape[0]
             what = "torch.sort" if rids is None else \
                 "torch.sort(stable) + rid gather"
@@ -582,11 +776,21 @@ def main():
                   f"({n / t['port'] * 1e3:.4e} keys/s); {what}: median "
                   f"{t['torch']:.3f} ms ({n / t['torch'] * 1e3:.4e} "
                   f"keys/s); {2 * timed_runs} runs each, alternated")
+            if also is not None:
+                print(f"main {label} {also[0]}: median {t[also[0]]:.3f} ms "
+                      f"({n / t[also[0]] * 1e3:.4e} keys/s)")
 
     def no_fallback(label):
         def expect(stats):
             assert stats["small_n"] == 0 and stats["overflow"] == 0 \
-                and stats["deep"] == 0, (label, stats)
+                and stats["deep"] == 0 and stats["plan"] == 0 \
+                and stats["retry"] == 0, (label, stats)
+        return expect
+
+    def deep_expect(label):
+        def expect(stats):
+            assert stats["deep"] >= 1 and stats["overflow"] == 0, \
+                (label, stats)
         return expect
 
     # ---- keys only (uint32)
@@ -600,7 +804,8 @@ def main():
         assert g.cap_rows == cap_rows, (label, g)
         x = make_keys(n, heavy, SEED + logn, dev)
         run_case(label, x, None, 2 if timed_ else 0,
-                 (lambda s: None) if heavy else no_fallback(label))
+                 (lambda s: None) if heavy else no_fallback(label),
+                 engine="v4")
         print(f"main {label}: checksum {checksum(x)}, rmax {g.rmax} "
               f"two_level {g.two_level} cap_rows {g.cap_rows}")
         if timed_:
@@ -612,40 +817,76 @@ def main():
         del x
     close()
 
-    # ---- payload planes
+    # ---- payload planes (v4 up to 2^29; 2^30 pairs go to v5)
     close = path("payload", ["hist_level", "route_level", "terminal_write"])
     for i, (label, logn, kk, rk) in enumerate(PAYLOAD_CASES):
         keys, rids = make_input(1 << logn, kk, rk, SEED + logn, dev)
-        run_case(label, keys, rids, 2, no_fallback(label))
+        run_case(label, keys, rids, 2, no_fallback(label), engine="v4")
         if i == 0:
             breakdown(label, lambda: sort(keys, rids, config=cfg))
         del keys, rids
-    # BASELINE's 2^30 rows where engine="auto" would take them, else 2^29
     big = BIG_PAIRS_LOGN
-    try:
-        check_fits(1 << big, 3, dev, cfg)
-    except NotImplementedError as e:
-        print(f"main pairs at 2^{big}: {e}")
-        big -= 1
-        check_fits(1 << big, 3, dev, cfg)
+    assert check_fits(1 << big, 3, dev, cfg) == "v4", big
     label = f"pairs u32+u64 2^{big}"
     keys, rids = make_input(1 << big, "u32", "u64", SEED + big, dev)
-    run_case(label, keys, rids, 1, no_fallback(label))
+    run_case(label, keys, rids, 1, no_fallback(label), engine="v4")
     del keys, rids
     close()
 
     # ---- deep tier
-    close = path("deep", list(KERNELS))
-
-    def deep_expect(label):
-        def expect(stats):
-            assert stats["deep"] >= 1 and stats["overflow"] == 0, \
-                (label, stats)
-        return expect
+    close = path("deep", ["hist_level", "route_level", "terminal_write",
+                          "splice_runs"])
     for label, logn, kind in DEEP_CASES:
         keys, rids = make_input(1 << logn, kind, None, SEED + 3 + logn, dev)
         run_case(label, keys, rids, 1, deep_expect(label))
         del keys, rids
+    close()
+
+    # ---- the in-place v5 engine
+    torch.cuda.empty_cache()
+    close = path("v5", list(KERNELS))
+    big = V5_PAIRS_LOGN
+    held = held_bytes(1 << big, torch.uint32, torch.uint64)
+    fits = check_fits(1 << big, 3, dev, cfg, held)
+    print(f"main v5: check_fits(2^{big} pairs, held {held} B) -> {fits!r}")
+    assert fits == "v5", fits
+    label = f"v5 auto pairs u32+u64 2^{big}"
+    keys, rids = make_input(1 << big, "u32", "u64", SEED + 5 + big, dev)
+    run_case(label, keys, rids, 1, no_fallback(label), engine="v5")
+    breakdown(label, lambda: sort(keys, rids, config=cfg))
+    del keys, rids
+    torch.cuda.empty_cache()
+
+    lk, ls, lr = V5_KEYS_LOGN, V5_SMALL_LOGN, V5_RAW_LOGN
+    x = make_keys(1 << lk, 0.0, SEED + lk, dev)
+    run_case(f"v5 keys 2^{lk}", x, None, 2, no_fallback(f"v5 keys 2^{lk}"),
+             config=v5cfg, engine="v5", also=("v4", cfg))
+    del x
+    x = make_keys(1 << ls, 0.3, SEED + ls, dev)
+    run_case(f"v5 maxheavy 2^{ls}", x, None, 0, lambda s: None,
+             config=v5cfg, engine="v5")
+    del x
+    keys, rids = make_input(1 << ls, "heavy_pairs", None, SEED + 9, dev)
+
+    def retry_expect(stats):
+        assert stats["retry"] >= 1 and stats["deep"] >= 1 \
+            and stats["overflow"] == 0, ("v5 retry", stats)
+    run_case(f"v5 heavy pairs 2^{ls} (retry, deep)", keys, rids, 0,
+             retry_expect, config=v5cfg, engine="v5")
+    del keys, rids
+
+    n = 1 << lr
+    chunks = [make_keys(n // 4, 0.0, SEED + 40 + i, dev) for i in range(4)]
+    want = sum(checksum(c) for c in chunks) % (1 << 64)
+    label = f"v5 from_chunks raw 2^{lr}"
+    res = checker.run(label, lambda: (
+        engine_v5.sort_v5_from_chunks(
+            lambda i: (chunks[i].view(torch.int32),), 4, n, cfg, raw=True)))
+    total, srt, _ = raw_check_2d(res[0], n)
+    assert srt and total == want, ("raw", srt, total, want)
+    print(f"main {label}: W {tuple(res[0].shape)} int32, raw_check_2d "
+          f"sorted {srt}, checksum {total} (input {want})")
+    del res, chunks
     close()
 
     log.close()
@@ -660,8 +901,10 @@ def main():
          "ms": round(totals[name]["ms"], 4),
          "plain_ms": round(totals[name]["plain_ms"], 4),
          "bound_ms": round(totals[name]["bound_ms"], 4),
-         "bound_by": "bytes", "library_ms": None}
-        for name, (src, rep) in KERNELS.items()]}))
+         "bound_by": "bytes",
+         "library_ms": (round(totals[name]["library_ms"], 4)
+                        if name in LIBRARY else None)}
+        for name, (_, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

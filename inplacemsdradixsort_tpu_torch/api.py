@@ -5,15 +5,16 @@
     sort(keys, rids=None, config=..., timing=False) -> SortResult
     sort_with_indices(keys, config=...)             -> (keys, permutation)
     check(keys, rids=None, same=False)              -> checksum
-    check_fits(n, nplanes, device, config)          -> raises past v4
+    check_fits(n, nplanes, device, config, held)    -> "v4" or "v5"
     mamalloc(n, dtype, fudge, device)               -> padded buffer
 
 Keys are uint32, int32, float32, uint64 or int64; rids any integer type,
 64-bit rids included.  Both are split into uint32 planes (int32/float32
 through order-preserving codecs, 64-bit values as (hi, lo) words), which
-the v4 engine sorts lexicographically by (key, *rid words), and joined
-back.  Data that is not a tensor goes to the CUDA device; a CPU tensor
-stays on the CPU, where ``engine="auto"`` runs plain ``torch.sort``.
+the v4 engine (or, where v4 does not fit, the in-place v5 engine) sorts
+lexicographically by (key, *rid words), and joined back.  Data that is
+not a tensor goes to the CUDA device; a CPU tensor stays on the CPU,
+where ``engine="auto"`` runs plain ``torch.sort``.
 """
 
 from __future__ import annotations
@@ -25,13 +26,13 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, SortConfig
-from .ops import engine_v4, keycodec
+from .ops import engine_v4, engine_v5, keycodec
 from .ops.kernels_v4 import LANES
 from .utils.checking import check  # re-exported
 from .utils.timing import PhaseTimer
 
 __all__ = ["SortResult", "sort", "sort_with_indices", "check", "check_fits",
-           "mamalloc"]
+           "fits_v5", "held_bytes", "mamalloc"]
 
 KEY_DTYPES = (torch.uint32, torch.int32, torch.float32, torch.uint64,
               torch.int64)
@@ -46,7 +47,7 @@ class SortResult:
     rids: Optional[torch.Tensor]
     times: List[Tuple[str, float]]          # the 10-row phase report
     # True when the engine already synchronised on the result (v4's
-    # overflow-flag fetch is the completion barrier)
+    # overflow-flag fetch is the completion barrier; v5 synchronises last)
     synced: bool = False
 
     def pretty_times(self) -> str:
@@ -83,40 +84,87 @@ def mamalloc(n: int, dtype=torch.uint32, fudge: float = 1.0,
     return torch.zeros(cap, dtype=dtype, device=device or _card())
 
 
-def _select_engine(cfg: SortConfig, keys: torch.Tensor) -> str:
-    """``auto``: v4 on a CUDA tensor, plain ``torch.sort`` on a CPU one.
-    ``v4`` on a CPU tensor runs the kernels' plain versions."""
+def _select_engine(cfg: SortConfig, keys: torch.Tensor, nplanes: int,
+                   held: Optional[int] = None) -> str:
+    """``auto``: on a CUDA tensor the engine ``check_fits`` picks (v4, or
+    v5 where v4 does not fit), on a CPU tensor plain ``torch.sort``.
+    ``v4`` and ``v5`` on a CPU tensor run the kernels' plain versions;
+    ``v5`` on the card must pass v5's own fit check (``fits_v5``).
+    ``held``: as in ``fits_v5``."""
     engine = cfg.engine
     if engine == "auto":
-        return "v4" if keys.is_cuda else "torch"
-    if engine not in ("v4", "torch"):
+        if not keys.is_cuda:
+            return "torch"
+        return check_fits(keys.shape[0], nplanes, keys.device, cfg, held)
+    if engine not in ("v4", "v5", "torch"):
         raise NotImplementedError(
-            f"engine {engine!r} is not ported yet (ROADMAP.md A8-A13); "
-            "the port has 'auto', 'v4' and 'torch'")
+            f"engine {engine!r} is not ported yet (ROADMAP.md A8, A11-A13); "
+            "the port has 'auto', 'v4', 'v5' and 'torch'")
+    if engine == "v5" and keys.is_cuda:
+        fits_v5(keys.shape[0], nplanes, keys.device, cfg, held)
     return engine
 
 
+def held_bytes(n: int, key_dtype, rid_dtype=None) -> int:
+    """Device bytes ``sort`` holds beside the engine through a sort of n
+    keys of ``key_dtype`` (and rids of ``rid_dtype``): the caller's
+    tensors, and for each that is not passed as its own uint32 words
+    (uint32 keys, 32-bit rids) the planes made from it and the output
+    joined back from the engine's planes."""
+    def one(dtype, own):
+        size = dtype.itemsize
+        return n * (size if own else 2 * size + 4 * max(1, size // 4))
+
+    held = one(key_dtype, key_dtype == torch.uint32)
+    if rid_dtype is not None:
+        held += one(rid_dtype, rid_dtype.itemsize == 4)
+    return held
+
+
 def check_fits(n: int, nplanes: int, device=None,
-               config: SortConfig = DEFAULT_CONFIG) -> None:
-    """The size switch of the reference's ``engine="auto"``, which hands
-    an input to the in-place v5 engine where v4 cannot sort it.  v5 is not
-    ported, so this raises ``NotImplementedError`` instead of running out
-    of memory when n elements of ``nplanes`` uint32 planes
-    - ask for more buckets than v4's topology holds (ROADMAP.md C9), or
-    - need a v4 working set over 75% of ``device``'s memory."""
+               config: SortConfig = DEFAULT_CONFIG,
+               held: Optional[int] = None) -> str:
+    """The size switch of ``engine="auto"``: the engine that sorts n
+    elements of ``nplanes`` uint32 planes on ``device``.  "v4", unless
+    - the planner asks for more buckets than v4's topology holds
+      (ROADMAP.md C9: 2^30 (u32 key, u64 rid) pairs want ~13,571 of
+      rmax^2 = 9,216), or
+    - v4's working set (4.3 x the plane bytes) is over 75% of the
+      device's memory;
+    then "v5", the in-place engine, as the reference's switch hands such
+    inputs to it.  Raises ``ValueError`` where v5 does not fit either
+    (``fits_v5``, with ``held``), and for n past ``engine_v5.MAX_N``,
+    which neither engine's int32 output offsets reach."""
+    engine_v5.check_n(n)
     wanted, room = engine_v4.bucket_room(n, nplanes, config)
-    if wanted > room:
-        raise NotImplementedError(
-            f"{n} elements x {nplanes} planes ask for ~{wanted} buckets, v4's "
-            f"topology holds {room} (ROADMAP.md C9): the in-place v5 engine "
-            "that sorts them is not ported yet (ROADMAP.md A10)")
     total = torch.cuda.mem_get_info(device)[1]
-    need = V4_BYTES_PER_PLANE_ELEM * nplanes * n
-    if need > 0.75 * total:
-        raise NotImplementedError(
-            f"{n} elements x {nplanes} planes need ~{need:.3g} B in v4, over "
-            f"75% of the card's {total} B: the in-place v5 engine that fits "
-            "them is not ported yet (ROADMAP.md A10)")
+    if wanted <= room and V4_BYTES_PER_PLANE_ELEM * nplanes * n \
+            <= 0.75 * total:
+        return "v4"
+    fits_v5(n, nplanes, device, config, held)
+    return "v5"
+
+
+def fits_v5(n: int, nplanes: int, device=None,
+            config: SortConfig = DEFAULT_CONFIG,
+            held: Optional[int] = None) -> None:
+    """v5's fit check: its engine buffers (W, the scratch arena S and the
+    terminal's scratch, ``engine_v5.v5_bytes``) plus ``held``, the bytes
+    the caller keeps on the device through the sort (``held_bytes``; by
+    default the ``nplanes`` planes themselves), against 75% of the
+    device's memory.  Raises ``ValueError`` naming what does not fit,
+    or for n past ``engine_v5.MAX_N``, before anything is allocated."""
+    engine_v5.check_n(n)
+    total = torch.cuda.mem_get_info(device)[1]
+    engine = engine_v5.v5_bytes(n, nplanes, config)
+    if held is None:
+        held = 4 * nplanes * n
+    if engine + held > 0.75 * total:
+        raise ValueError(
+            f"{n} elements x {nplanes} planes do not fit the in-place v5 "
+            f"engine: W, S and the terminal scratch ~{engine:.4g} B plus "
+            f"the caller's inputs, planes and outputs {held:.4g} B exceed "
+            f"75% of the device's {total} B")
 
 
 def _key_planes(keys: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -201,12 +249,15 @@ def sort(
     kplanes = _key_planes(keys.contiguous())
     vplanes = _rid_planes(rids) if rids is not None else ()
     timer = PhaseTimer(enabled=timing)
-    engine = _select_engine(config, keys)
-    if engine == "v4" and config.engine == "auto":
-        check_fits(keys.shape[0], len(kplanes) + len(vplanes), keys.device,
-                   config)
+    engine = _select_engine(
+        config, keys, len(kplanes) + len(vplanes),
+        held_bytes(keys.shape[0], keys.dtype,
+                   rids.dtype if rids is not None else None))
     if engine == "v4":
         outs, vouts = engine_v4.sort_v4(kplanes[0], kplanes[1:] + vplanes,
+                                        config, timer=timer)
+    elif engine == "v5":
+        outs, vouts = engine_v5.sort_v5(kplanes[0], kplanes[1:] + vplanes,
                                         config, timer=timer)
     else:
         with timer.phase("local_sort"):
@@ -218,7 +269,7 @@ def sort(
     out_r = (_join_rids(vouts[nk - 1:], rids.dtype)
              if rids is not None else None)
     return SortResult(keys=out_k, rids=out_r, times=timer.report(),
-                      synced=engine == "v4")
+                      synced=engine != "torch")
 
 
 def sort_with_indices(keys, config: SortConfig = DEFAULT_CONFIG

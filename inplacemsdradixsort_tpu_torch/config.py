@@ -2,9 +2,9 @@
 
 The fields keep the names and defaults of ``inplacemsdradixsort_tpu``'s
 ``SortConfig``, so that one kwargs dict configures both packages in the
-parity tests.  Only the fields that the ported v4 path reads are here;
-the fields of engines not yet ported (v3, v5, LSB, v1, distributed) join
-with their engines.  ``interpret`` has no counterpart: a kernel runs its
+parity tests.  Only the fields that the ported v4 and v5 paths read are
+here; the fields of engines not yet ported (v3, LSB, v1, distributed)
+join with their engines.  ``interpret`` has no counterpart: a kernel runs its
 plain PyTorch version when its input lies on the CPU.
 """
 
@@ -28,6 +28,14 @@ class SortConfig:
     v3_rmax: Optional[int] = None     # ranges per parent per level
     v3_cap_rows: Optional[int] = None  # terminal bucket capacity rows
 
+    # --- v5 in-place engine geometry (None = auto) ---
+    # L1 tile rows of the sequential-block partition (rows x 128 must be
+    # a power of two)
+    v5_pitch_rows: Optional[int] = None
+    # L2 scratch budget as a fraction of the input blocks: regions are
+    # batched so that each batch's blocks fit ceil(frac * total)
+    v5_batch_frac: float = 0.25
+
     # below this size the engine dispatches straight to ``torch.sort``;
     # None = the engine default (2^16).  Tests lower it to exercise the
     # pipeline at tiny n.
@@ -37,7 +45,8 @@ class SortConfig:
     # cap/4): one terminal launch per class
     term_classes: int = 3
 
-    # "auto" (v4 for a CUDA tensor, torch for a CPU tensor) | "v4" | "torch"
+    # "auto" (v4 for a CUDA tensor, v5 where v4 does not fit, torch for a
+    # CPU tensor) | "v4" | "v5" | "torch"
     engine: str = "auto"
 
 

@@ -452,7 +452,7 @@ int launch_splice(void* const* src, long long src_len, const void* btbl,
 
 extern "C" {
 
-const char* kv4_error_string(int err) {
+const char* kv_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 

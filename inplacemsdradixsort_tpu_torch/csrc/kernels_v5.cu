@@ -1,0 +1,384 @@
+// Hand-written Hopper (sm_90a) kernels of the v5 in-place engine: the
+// sequential-block partition (seqroute_level) and the cycle block permute
+// (block_permute), both in place over the working buffer W.
+//
+// Built by ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC
+// into a shared library with a plain C interface, loaded with ctypes.
+// Every launcher takes PyTorch's current stream, allocates nothing (the
+// wrapper passes staging, accumulators and cursors), does not
+// synchronise, and returns cudaGetLastError().
+//
+// W is 1-4 int32 planes; a block is 256 rows x 128 lanes = 32768
+// elements, and slot k of W holds elements [k * 32768, (k + 1) * 32768).
+// Addresses are 64-bit: W passes 2^31 elements near the top size.
+// The Python wrappers and their plain PyTorch versions live in
+// ops/kernels_v5.py; the notes there say which TPU kernel each replaces
+// and what bounds it on the H100.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int LANES = 128;
+constexpr int32_t BIAS = INT32_MIN;
+constexpr int32_t SENT = INT32_MAX;
+constexpr int BLK_SHIFT = 15;
+constexpr long long BLK = 1LL << BLK_SHIFT;
+constexpr int MAX_PLANES = 4;
+constexpr int COPY_THREADS = 256;    // stage / flush / drain blocks
+constexpr int COPY_PARTS = 8;        // flush / drain blocks per range
+constexpr int ROUTE_THREADS = 512;
+constexpr int ROUTE_CHUNK = 16384;   // tile elements per route block
+constexpr int PERMUTE_THREADS = 256;
+// blocks per cycle: each thread of them owns one int4 of every plane
+constexpr int PERMUTE_SPLIT = (int)(BLK / 4 / PERMUTE_THREADS);
+
+template <int NP>
+struct Planes {
+  int32_t* p[NP];
+};
+
+template <int NP>
+Planes<NP> planes_of(void* const* ptrs) {
+  Planes<NP> v;
+  for (int q = 0; q < NP; ++q) v.p[q] = (int32_t*)ptrs[q];
+  return v;
+}
+
+// Planes of one buffer laid out one after another, `stride` elements apart.
+template <int NP>
+Planes<NP> planes_at(int32_t* base, long long stride) {
+  Planes<NP> v;
+  for (int q = 0; q < NP; ++q) v.p[q] = base + q * stride;
+  return v;
+}
+
+// First d in [0, rmax) with k <= b[d] (inclusive upper bounds); rmax when
+// k exceeds every bound.
+__device__ __forceinline__ int find_range(const int32_t* b, int rmax,
+                                          int32_t k) {
+  int lo = 0, hi = rmax;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (k <= b[mid]) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+// Live elements of data tile t: meta[4t:4t+4] = (src_row, nelems, ., .),
+// clamped to the tile and to W.
+__device__ __forceinline__ long long tile_live(const int32_t* meta, int t,
+                                               long long tile_elems,
+                                               long long w_len) {
+  const long long src = (long long)meta[4 * t] * LANES;
+  long long nel = min((long long)meta[4 * t + 1], tile_elems);
+  return max(0LL, min(nel, w_len - src));
+}
+
+// ----------------------------------------------------- seqroute_level
+// Per window of tiles [t0, tend), in stream order:
+// 1. stage_kernel copies the window's live elements out of W;
+// 2. flush_kernel writes, for every range whose open block (the one its
+//    stream reached before the window) completes inside the window, the
+//    part of that block held in the accumulator to the block's slot;
+// 3. route_kernel sends every staged element to its stream position:
+//    straight to its block's W slot when the block completes by the
+//    window's end, else into the range's accumulator (parity = block & 1;
+//    a range has one open block at a window's end, and the flush of
+//    step 2 ran before any element of the window lands in the parity
+//    that block used).
+// Every slot written in a window belongs to a block completed by a tile
+// of the window or earlier, so it lies in rows those tiles have read:
+// blocks are numbered in (tile, range) order of completion and a tile
+// completes no more blocks than it holds elements.  After the last
+// window drain_kernel pads every open block into its drain slot.
+
+template <int NP>
+__global__ void __launch_bounds__(COPY_THREADS) stage_kernel(
+    Planes<NP> w, long long w_len, const int32_t* __restrict__ meta, int t0,
+    int pitch, Planes<NP> stage, int cpt) {
+  const int lt = blockIdx.x / cpt, part = blockIdx.x % cpt;
+  const long long te = (long long)pitch * LANES;
+  const long long nel = tile_live(meta, t0 + lt, te, w_len);
+  const long long lo = (long long)part * ROUTE_CHUNK;
+  const long long hi = min(lo + ROUTE_CHUNK, nel);
+  if (lo >= hi) return;
+  const long long src = (long long)meta[4 * (t0 + lt)] * LANES + lo;
+  const long long dst = lt * te + lo;
+  const long long nv = (hi - lo) / 4;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    const int4* s4 = (const int4*)(w.p[q] + src);
+    int4* d4 = (int4*)(stage.p[q] + dst);
+    for (long long i = threadIdx.x; i < nv; i += blockDim.x) d4[i] = s4[i];
+    for (long long i = nv * 4 + threadIdx.x; i < hi - lo; i += blockDim.x)
+      stage.p[q][dst + i] = w.p[q][src + i];
+  }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(COPY_THREADS) flush_kernel(
+    Planes<NP> w, Planes<NP> acc, const int32_t* __restrict__ base_tbl,
+    const long long* __restrict__ boff, const long long* __restrict__ bslot,
+    int t0, int tend, int rmax) {
+  const int d = blockIdx.x / COPY_PARTS, part = blockIdx.x % COPY_PARTS;
+  const long long c0 = base_tbl[(long long)t0 * rmax + d];
+  const long long c1 = base_tbl[(long long)tend * rmax + d];
+  const long long b0 = c0 >> BLK_SHIFT, fill = c0 & (BLK - 1);
+  if (fill == 0 || ((b0 + 1) << BLK_SHIFT) > c1) return;
+  const long long dst = bslot[boff[d] + b0] << BLK_SHIFT;
+  const long long src = ((long long)d * 2 + (b0 & 1)) << BLK_SHIFT;
+  const long long per = BLK / COPY_PARTS;
+  const long long hi = min((part + 1) * per, fill);
+  for (long long i = part * per + threadIdx.x; i < hi; i += blockDim.x) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q) w.p[q][dst + i] = acc.p[q][src + i];
+  }
+}
+
+// One block per ROUTE_CHUNK elements of a tile.  Pass 1 counts the
+// chunk's elements per range in shared memory; one global atomicAdd per
+// (chunk, range) on the tile's cursor reserves the chunk's share of the
+// tile's run; pass 2 claims each element's place in that share with a
+// shared-memory atomic (order inside a run is therefore not defined) and
+// stores every plane at the exact 64-bit address.  A claim past the
+// run's count (a histogram that does not match) is dropped.
+template <int NP>
+__global__ void __launch_bounds__(ROUTE_THREADS) route_kernel(
+    Planes<NP> stage, long long w_len, const int32_t* __restrict__ meta,
+    const int32_t* __restrict__ cnt_tbl, const int32_t* __restrict__ base_tbl,
+    const int32_t* __restrict__ bounds, const long long* __restrict__ boff,
+    const long long* __restrict__ bslot, Planes<NP> acc, Planes<NP> w,
+    int* __restrict__ cursor, int t0, int tend, int pitch, int rmax, int cpt,
+    int32_t xor_in) {
+  extern __shared__ long long sm64[];
+  long long* sbase = sm64;                 // stream offset of the tile's run
+  long long* send = sbase + rmax;          // stream length at window end
+  long long* sboff = send + rmax;          // first block entry of the range
+  int32_t* sb = (int32_t*)(sboff + rmax);  // bounds
+  int* lcnt = sb + rmax;                   // chunk counts, then cursors
+  int* gb = lcnt + rmax;                   // the chunk's share of the run
+  int* scnt = gb + rmax;                   // the run's count
+  const int lt = blockIdx.x / cpt, part = blockIdx.x % cpt;
+  const int t = t0 + lt;
+  const long long te = (long long)pitch * LANES;
+  const long long nel = tile_live(meta, t, te, w_len);
+  const long long lo = (long long)part * ROUTE_CHUNK;
+  const long long hi = min(lo + ROUTE_CHUNK, nel);
+  if (lo >= hi) return;
+  const long long row = (long long)t * rmax;
+  for (int d = threadIdx.x; d < rmax; d += blockDim.x) {
+    sb[d] = bounds[d];
+    lcnt[d] = 0;
+    sbase[d] = base_tbl[row + d];
+    send[d] = base_tbl[(long long)tend * rmax + d];
+    sboff[d] = boff[d];
+    scnt[d] = cnt_tbl[row + d];
+  }
+  __syncthreads();
+  const int32_t* in0 = stage.p[0] + lt * te;
+  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    const int d = find_range(sb, rmax, in0[i] ^ xor_in);
+    if (d < rmax) atomicAdd(&lcnt[d], 1);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < rmax; d += blockDim.x) {
+    const int c = lcnt[d];
+    gb[d] = c ? atomicAdd(&cursor[(long long)lt * rmax + d], c) : 0;
+    lcnt[d] = 0;
+  }
+  __syncthreads();
+  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    const int32_t k = in0[i] ^ xor_in;
+    const int d = find_range(sb, rmax, k);
+    if (d >= rmax) continue;
+    const int j = gb[d] + atomicAdd(&lcnt[d], 1);
+    if (j >= scnt[d]) continue;
+    const long long s = sbase[d] + j;
+    const long long b = s >> BLK_SHIFT, off = s & (BLK - 1);
+    Planes<NP> out;
+    long long o;
+    if (((b + 1) << BLK_SHIFT) <= send[d]) {
+      out = w;
+      o = (bslot[sboff[d] + b] << BLK_SHIFT) + off;
+    } else {
+      out = acc;
+      o = (((long long)d * 2 + (b & 1)) << BLK_SHIFT) + off;
+    }
+    out.p[0][o] = k;
+#pragma unroll
+    for (int q = 1; q < NP; ++q) out.p[q][o] = stage.p[q][lt * te + i] ^ xor_in;
+  }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(COPY_THREADS) drain_kernel(
+    Planes<NP> w, Planes<NP> acc, const int32_t* __restrict__ base_tbl,
+    const int32_t* __restrict__ padv_tbl, const long long* __restrict__ boff,
+    const long long* __restrict__ bslot, int ndata, int rmax) {
+  const int d = blockIdx.x / COPY_PARTS, part = blockIdx.x % COPY_PARTS;
+  const long long row = (long long)ndata * rmax + d;
+  const long long total = base_tbl[row];
+  const long long b = total >> BLK_SHIFT, fill = total & (BLK - 1);
+  const long long dst = bslot[boff[d] + b] << BLK_SHIFT;
+  const long long src = ((long long)d * 2 + (b & 1)) << BLK_SHIFT;
+  const int32_t padv = padv_tbl[row];
+  const long long per = BLK / COPY_PARTS;
+  for (long long i = part * per + threadIdx.x; i < (part + 1) * per;
+       i += blockDim.x) {
+    const bool real = i < fill;
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      w.p[q][dst + i] = real ? acc.p[q][src + i] : (q == 0 ? padv : SENT);
+  }
+}
+
+template <int NP>
+int launch_seqroute(void* const* wp, long long w_len, const int32_t* meta,
+                    const int32_t* cnt, const int32_t* base,
+                    const int32_t* padv, const long long* boff,
+                    const long long* bslot, int32_t* stage, int32_t* acc,
+                    int* cursor, int ntiles, int pitch, int rmax, int wt,
+                    int32_t xor_in, cudaStream_t st) {
+  const int ndata = ntiles - 1;
+  const long long te = (long long)pitch * LANES;
+  const int cpt = (int)((te + ROUTE_CHUNK - 1) / ROUTE_CHUNK);
+  const Planes<NP> w = planes_of<NP>(wp);
+  const Planes<NP> S = planes_at<NP>(stage, wt * te);
+  const Planes<NP> A = planes_at<NP>(acc, (long long)rmax * 2 * BLK);
+  // the ranges' inclusive upper bounds are the drain tile's pad values
+  const int32_t* bounds = padv + (long long)ndata * rmax;
+  const size_t shm = (size_t)rmax * (3 * sizeof(long long) + 4 * sizeof(int));
+  for (int t0 = 0; t0 < ndata; t0 += wt) {
+    const int tend = min(t0 + wt, ndata);
+    const int nt = tend - t0;
+    stage_kernel<NP><<<nt * cpt, COPY_THREADS, 0, st>>>(w, w_len, meta, t0,
+                                                         pitch, S, cpt);
+    flush_kernel<NP><<<rmax * COPY_PARTS, COPY_THREADS, 0, st>>>(
+        w, A, base, boff, bslot, t0, tend, rmax);
+    cudaError_t err = cudaMemsetAsync(cursor, 0,
+                                      (size_t)nt * rmax * sizeof(int), st);
+    if (err != cudaSuccess) return (int)err;
+    route_kernel<NP><<<nt * cpt, ROUTE_THREADS, shm, st>>>(
+        S, w_len, meta, cnt, base, bounds, boff, bslot, A, w, cursor, t0,
+        tend, pitch, rmax, cpt, xor_in);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  drain_kernel<NP><<<rmax * COPY_PARTS, COPY_THREADS, 0, st>>>(
+      w, A, base, padv, boff, bslot, ndata, rmax);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------ block_permute
+// One cycle per PERMUTE_SPLIT blocks: thread i of block `part` owns the
+// int4 at element offset (part * PERMUTE_THREADS + i) * 4 of every W
+// block in the cycle.  Slot cyc[i] takes the block of slot cyc[i + 1];
+// the last slot takes the head, which the thread keeps in registers.
+// Each offset is a chain of its own, so no barrier is needed; a thread
+// reads PD blocks ahead of its writes, and never reads a slot it has
+// already written (reads run ahead of writes along the cycle).
+template <int NP>
+__global__ void __launch_bounds__(PERMUTE_THREADS) permute_kernel(
+    Planes<NP> w, const int32_t* __restrict__ cyc_off,
+    const int32_t* __restrict__ cyc_slots) {
+  constexpr int PD = NP <= 2 ? 8 : 4;
+  const int c = blockIdx.x / PERMUTE_SPLIT;
+  const int part = blockIdx.x % PERMUTE_SPLIT;
+  const int o0 = cyc_off[c];
+  const int L = cyc_off[c + 1] - o0;
+  if (L < 2) return;
+  const long long e = ((long long)part * PERMUTE_THREADS + threadIdx.x) * 4;
+  const int32_t* cyc = cyc_slots + o0;
+  int4 head[NP];
+#pragma unroll
+  for (int q = 0; q < NP; ++q)
+    head[q] = *(int4*)(w.p[q] + ((long long)cyc[0] << BLK_SHIFT) + e);
+  for (int i = 0; i < L - 1; i += PD) {
+    int4 v[PD][NP];
+#pragma unroll
+    for (int k = 0; k < PD; ++k) {
+      if (i + k < L - 1) {
+        const long long a = ((long long)cyc[i + 1 + k] << BLK_SHIFT) + e;
+#pragma unroll
+        for (int q = 0; q < NP; ++q) v[k][q] = *(int4*)(w.p[q] + a);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PD; ++k) {
+      if (i + k < L - 1) {
+        const long long a = ((long long)cyc[i + k] << BLK_SHIFT) + e;
+#pragma unroll
+        for (int q = 0; q < NP; ++q) *(int4*)(w.p[q] + a) = v[k][q];
+      }
+    }
+  }
+  const long long a = ((long long)cyc[L - 1] << BLK_SHIFT) + e;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) *(int4*)(w.p[q] + a) = head[q];
+}
+
+template <int NP>
+int launch_permute(void* const* wp, const int32_t* cyc_off,
+                   const int32_t* cyc_slots, int ncyc, cudaStream_t st) {
+  const long long grid = (long long)ncyc * PERMUTE_SPLIT;
+  if (grid > INT32_MAX) return (int)cudaErrorInvalidValue;
+  permute_kernel<NP><<<(unsigned)grid, PERMUTE_THREADS, 0, st>>>(
+      planes_of<NP>(wp), cyc_off, cyc_slots);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* kv_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// Plane pointers come as four arguments each (NULL past nplanes).
+int kv5_seqroute_level(void* w0, void* w1, void* w2, void* w3,
+                       long long w_len, const void* meta, const void* cnt,
+                       const void* base, const void* padv, const void* boff,
+                       const void* bslot, void* stage, void* acc,
+                       void* cursor, int nplanes, int ntiles, int pitch,
+                       int rmax, int wt, int bias_input, void* stream) {
+  void* const w[MAX_PLANES] = {w0, w1, w2, w3};
+  const int32_t x = bias_input ? BIAS : 0;
+  cudaStream_t st = (cudaStream_t)stream;
+#define KV5_SEQROUTE(NP)                                                   \
+  launch_seqroute<NP>(w, w_len, (const int32_t*)meta, (const int32_t*)cnt, \
+                      (const int32_t*)base, (const int32_t*)padv,          \
+                      (const long long*)boff, (const long long*)bslot,     \
+                      (int32_t*)stage, (int32_t*)acc, (int*)cursor,        \
+                      ntiles, pitch, rmax, wt, x, st)
+  switch (nplanes) {
+    case 1: return KV5_SEQROUTE(1);
+    case 2: return KV5_SEQROUTE(2);
+    case 3: return KV5_SEQROUTE(3);
+    case 4: return KV5_SEQROUTE(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef KV5_SEQROUTE
+}
+
+int kv5_block_permute(void* w0, void* w1, void* w2, void* w3,
+                      const void* cyc_off, const void* cyc_slots, int ncyc,
+                      int nplanes, void* stream) {
+  void* const w[MAX_PLANES] = {w0, w1, w2, w3};
+  const int32_t* off = (const int32_t*)cyc_off;
+  const int32_t* slots = (const int32_t*)cyc_slots;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (nplanes) {
+    case 1: return launch_permute<1>(w, off, slots, ncyc, st);
+    case 2: return launch_permute<2>(w, off, slots, ncyc, st);
+    case 3: return launch_permute<3>(w, off, slots, ncyc, st);
+    case 4: return launch_permute<4>(w, off, slots, ncyc, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

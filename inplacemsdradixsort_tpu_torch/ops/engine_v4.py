@@ -46,10 +46,9 @@ from .plan_util import _bias_np, _ceil_div, _shape_class
 # engine-path observability: tests and probes assert that no input class
 # reaches the whole-array fallback.  "deep" counts deep-tier entries,
 # "deep_local" the deep tier's bucket-local torch.sort (at its depth cap
-# or for <= 128 elements); the reference's "plan" counter joins with the
-# host planner.
-FALLBACK_STATS = {"small_n": 0, "overflow": 0, "retry": 0, "deep": 0,
-                  "deep_local": 0}
+# or for <= 128 elements), "plan" a v5 plan that outgrew the topology.
+FALLBACK_STATS = {"small_n": 0, "plan": 0, "overflow": 0, "retry": 0,
+                  "deep": 0, "deep_local": 0}
 
 
 def reset_fallback_stats() -> None:
@@ -542,11 +541,17 @@ def _pipeline_core(planes, tb: dict, g: _GeomV4, *, debug: bool = False,
 
 
 def _finish(src_planes, reals_t, occ_t, src_t, term_mode, term_fill,
-            term_valid, n, cap_rows, nclasses=1):
+            term_valid, n, cap_rows, nclasses=1, out_base=0, outs0=None,
+            slice_n=True):
     """Terminal tier: class-chained ``terminal_write`` launches into one
-    exact n-element output per plane (the reference's v4 defaults;
-    ``out_base``, ``outs0`` and ``slice_n`` serve v5 and are not
-    ported)."""
+    n-element output per plane.
+
+    v5's extensions of the v4 defaults (as the reference's): ``out_base``
+    offsets the buckets' output positions (a batch continues the global
+    output stream), ``outs0`` are existing flat planes to write into in
+    place (v5's working buffer W) instead of fresh n-element outputs, and
+    ``slice_n=False`` returns those planes whole instead of their first n
+    elements."""
     dev = src_planes[0].device
     reals_t = torch.where(term_valid, reals_t, 0).to(torch.int32)
     occ_t = occ_t.to(torch.int32)
@@ -556,8 +561,9 @@ def _finish(src_planes, reals_t, occ_t, src_t, term_mode, term_fill,
         .to(torch.int32)
     reals_t = torch.where(term_mode == 0,
                           torch.minimum(reals_t, occ_t * LANES), reals_t)
-    ends = torch.clamp(torch.cumsum(reals_t, 0, dtype=torch.int32), max=n)
-    out_off = torch.cat([_i32([0], dev), ends[:-1]])
+    ends = torch.clamp(out_base + torch.cumsum(reals_t, 0, dtype=torch.int32),
+                       max=n)
+    out_off = torch.cat([_i32([out_base], dev), ends[:-1]])
     reals_t = ends - out_off
     # capacity classes (schedule_passes pass sizing, msb_64.c:1334-1400):
     # class 0 is the XL rescue tier (2*cap), then nclasses halving caps;
@@ -570,10 +576,15 @@ def _finish(src_planes, reals_t, occ_t, src_t, term_mode, term_fill,
     btbl = torch.stack([src_t, occ_t, reals_t, term_mode, term_fill,
                         out_off, cls, torch.zeros_like(reals_t)],
                        1).to(torch.int32).contiguous()
-    outs = tuple(torch.empty(n, dtype=torch.int32, device=dev)
-                 for _ in src_planes)
+    if outs0 is None:
+        outs = tuple(torch.empty(n, dtype=torch.int32, device=dev)
+                     for _ in src_planes)
+    else:
+        outs = tuple(o.reshape(-1) for o in outs0)
     for ci, cap_c in enumerate(caps):
         kv4.terminal_write(src_planes, btbl, outs, cap_c, class_id=ci)
+    if slice_n:
+        outs = tuple(o[:n] for o in outs)
     return outs, over, btbl
 
 

@@ -2,8 +2,9 @@
 
 Counterparts of ``inplacemsdradixsort_tpu/ops/engine_v3.py``'s
 ``_bias_np``, ``_ceil_div``, ``_shape_class`` and ``_quantile_bounds``,
-which the v4 planner and the deep tier import; ``engine_v3`` itself is
-not ported.
+which the v4 planner and the deep tier import (``engine_v3`` itself is
+not ported), and of ``engine_v4.py``'s host-side ``_bounds_hybrid``, which
+the v5 planner builds on.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from ..config import SortConfig
 
 U32_MAX = 0xFFFFFFFF
 
@@ -95,3 +98,34 @@ def _quantile_bounds(picks_u32: np.ndarray, left: np.ndarray,
     lo_excl = np.concatenate([[-1], b[:-1].astype(np.int64)])
     is_heavy = (b.astype(np.int64) == lo_excl + 1) & (est >= heavy_frac)
     return b.astype(np.uint32), est, is_heavy
+
+
+def _bounds_hybrid(stats: np.ndarray, S: int, nb_want: int,
+                   cfg: SortConfig):
+    """Duplicate-aware equal-depth bounds merged with radix-equidistant
+    delimiters (the hybrid delimiter set, msb_64.c:1545-1564), from the
+    (3, nbq) int32 quantile stats (raw picks, left and right ranks).
+
+    Returns (bounds uint32 ascending incl. 0xFFFFFFFF, is_heavy bool,
+    prefix_bits).  The heavy threshold is tied to the capacity: a value
+    above 0.3/nb_want of the mass is isolated, with a sample-noise floor
+    of 12 hits."""
+    heavy_frac = max(0.3 / nb_want, 12.0 / max(S, 1))
+    bounds, _, is_heavy = _quantile_bounds(
+        stats[0].view(np.uint32), stats[1], stats[2], S, heavy_frac,
+        cap_frac=1.0 / nb_want,
+    )
+    prefix_bits = 0
+    if cfg.use_sample_splitters and nb_want >= 16:
+        prefix_bits = min(8, max(2, int(math.log2(nb_want // 4))))
+        nrad = 1 << prefix_bits
+        rad = ((np.arange(1, nrad + 1, dtype=np.uint64)
+                << np.uint64(32 - prefix_bits)) - np.uint64(1))
+        heavy_set = set(bounds[is_heavy].astype(np.uint64).tolist())
+        merged = np.unique(np.concatenate([bounds.astype(np.uint64), rad]))
+        lo = np.concatenate([[-1], merged[:-1].astype(np.int64)])
+        is_heavy = np.array(
+            [int(v) in heavy_set and int(v) == int(lv) + 1
+             for v, lv in zip(merged, lo)], bool)
+        bounds = merged.astype(np.uint32)
+    return bounds, is_heavy, prefix_bits

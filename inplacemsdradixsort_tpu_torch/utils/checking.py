@@ -1,8 +1,9 @@
 """Post-hoc verification — the reference ``check()`` analog
 (msb_64.c:2432-2505): ascending order within each shard and across shard
 boundaries, the optional key == rid payload check, and the additive
-mod-2^64 checksum; plus ``check_permutation``, which verifies that a rid
-payload is exactly the permutation that sorts the input.
+mod-2^64 checksum; ``raw_check_2d``, the same check of v5's raw 2-D
+output slab by slab; and ``check_permutation``, which verifies that a
+rid payload is exactly the permutation that sorts the input.
 """
 
 from __future__ import annotations
@@ -93,3 +94,32 @@ def check_permutation(sorted_keys: torch.Tensor, sorted_rids: torch.Tensor,
     payload is exactly the permutation that sorts the input."""
     gathered = orig_keys[sorted_rids.long()]
     return bool((_ordered(gathered) == _ordered(sorted_keys)).all().item())
+
+
+def raw_check_2d(k: torch.Tensor, n: int, k2=None,
+                 slab_rows: int = 1 << 15):
+    """``check`` for raw 2-D engine output without N-sized temporaries.
+
+    ``k`` is a (rows, 128) int32 plane of raw uint32 words whose
+    row-major first n elements are the result (what
+    ``engine_v5.sort_v5_from_chunks(raw=True)`` returns).  Walks it in
+    slabs of ``slab_rows`` rows and returns (checksum mod 2^64, sorted,
+    payload equal): ``k2``, a second plane, enables the reference's
+    rids == keys integrity mode.  The reference sums mod 2^32; this one
+    sums mod 2^64, as ``check`` does."""
+    flat = k.reshape(-1)[:n]
+    flat2 = None if k2 is None else k2.reshape(-1)[:n]
+    step = slab_rows * k.shape[-1]
+    total, ok, pay, prev = 0, True, True, None
+    for i in range(0, n, step):
+        sl = flat[i:i + step]
+        o = sl ^ _BIAS32                    # unsigned order as signed
+        total = (total + int((sl.long() & 0xFFFFFFFF).sum().item())) \
+            % (1 << 64)
+        ok &= bool((o[1:] >= o[:-1]).all().item())
+        if prev is not None:
+            ok &= bool((o[0] >= prev).item())
+        prev = o[-1]
+        if flat2 is not None:
+            pay &= bool(torch.equal(sl, flat2[i:i + step]))
+    return total, ok, pay

@@ -8,6 +8,8 @@ Inputs come from ``np.random.default_rng(seed)``; every comparison is
 exact.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ import inplacemsdradixsort_tpu_torch as rt
 from inplacemsdradixsort_tpu_torch import api
 from inplacemsdradixsort_tpu_torch.config import SortConfig
 from inplacemsdradixsort_tpu_torch.ops import engine_v4 as te
+from inplacemsdradixsort_tpu_torch.ops import engine_v5 as te5
 from inplacemsdradixsort_tpu_torch.ops import keycodec as tkc
 from inplacemsdradixsort_tpu_torch.utils.checking import check_permutation
 
@@ -211,29 +214,90 @@ def test_numpy_input_asks_for_the_card():
     assert rt.sort(_t(x)).keys.device.type == "cpu"
 
 
+def _card_keys(n):
+    """A stand-in for an n-element tensor on the card: the size switch
+    reads only its length, device and ``is_cuda``."""
+    return types.SimpleNamespace(shape=(n,), device="cuda", is_cuda=True)
+
+
 def test_size_switch_names_v5(monkeypatch):
-    """engine='auto' on the card: a working set over 75% of the card's
-    memory raises naming ROADMAP A10 (v5 is not ported)."""
+    """engine='auto' on the card: a v4 working set over 75% of the card's
+    memory selects the in-place v5 engine (formerly a raise naming
+    ROADMAP A10); where v5 does not fit either, v5's own check raises
+    naming its buffers before anything is allocated."""
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (1 << 29, 1 << 30))
-    api.check_fits(20_000_000, 2)  # 4.3 * 4 B * 2 planes * 2e7 = 688 MB
-    with pytest.raises(NotImplementedError, match="A10"):
-        api.check_fits(20_000_000, 3)  # 1.03 GB > 0.75 * 1 GiB
+    auto = SortConfig()
+    assert api.check_fits(20_000_000, 2) == "v4"   # 688 MB of v4
+    assert api.check_fits(20_000_000, 3) == "v5"   # 1.03 GB > 0.75 GiB
+    assert api._select_engine(auto, _card_keys(20_000_000), 3) == "v5"
+    assert api._select_engine(auto, _card_keys(20_000_000), 2) == "v4"
+    with pytest.raises(ValueError, match="v5.*W, S"):
+        api.check_fits(60_000_000, 3)
+    with pytest.raises(ValueError, match="v5"):
+        api._select_engine(SortConfig(engine="v5"), _card_keys(60_000_000),
+                           3)
+    api.fits_v5(20_000_000, 3)
+
+
+def test_fits_v5_counts_held_bytes_and_n(monkeypatch):
+    """v5's fit check counts what the caller holds on the card beside the
+    engine (its keys and rids, the planes split from them, the outputs
+    joined back), so an input whose planes alone fit can still be
+    refused before anything is allocated; and n past 2^31 - 1, which the
+    int32 output offsets cannot reach, is refused by the size switch, by
+    v5's check and by the engine itself."""
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (80 << 30, 80 << 30))
+    n = 1 << 30
+    assert api.held_bytes(n, torch.uint32) == 4 * n
+    assert api.held_bytes(n, torch.uint32, torch.int32) == 8 * n
+    # u64 rids: the caller's 8 bytes, two split planes, the joined output
+    assert api.held_bytes(n, torch.uint32, torch.uint64) == 28 * n
+    assert api.held_bytes(n, torch.float32, torch.int16) == 20 * n
+    held = api.held_bytes(n, torch.uint32, torch.uint64)
+    assert api.check_fits(n, 3, held=held) == "v5"
+    engine = te5.v5_bytes(n, 3, SortConfig())
+    room = int(0.75 * (80 << 30))
+    api.fits_v5(n, 3, held=room - engine)
+    with pytest.raises(ValueError, match="inputs, planes and outputs"):
+        api.fits_v5(n, 3, held=room - engine + 1)
+    with pytest.raises(ValueError, match="v5"):
+        api._select_engine(SortConfig(engine="v5"), _card_keys(n), 3,
+                           room - engine + 1)
+    big = te5.MAX_N + 1
+    assert big == 1 << 31
+    for call in (lambda: api.check_fits(big, 1),
+                 lambda: api.fits_v5(big, 1),
+                 lambda: te5.sort_v5_from_chunks(
+                     lambda i: (torch.zeros(128, dtype=torch.int32),),
+                     1, big)):
+        with pytest.raises(ValueError, match="int32 output offsets"):
+            call()
+    api.fits_v5(te5.MAX_N, 1)
 
 
 def test_size_switch_topology(monkeypatch):
     """Bytes are not all: 2^30 (u32 key, u64 rid) pairs fit an 80 GB
     card's memory but ask for more buckets than v4's rmax^2 topology
-    holds, so engine='auto' raises instead of overflowing the XL class;
-    keys only, 2^30 fits both."""
+    holds, so engine='auto' selects v5 (formerly a raise naming ROADMAP
+    C9 and A10), whose topology holds them; keys only, 2^30 stays on
+    v4."""
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (80 << 30, 80 << 30))
     wanted, room = te.bucket_room(1 << 30, 3, SortConfig())
     assert wanted > room == 96 * 96
-    with pytest.raises(NotImplementedError, match="C9.*A10"):
-        api.check_fits(1 << 30, 3)
-    api.check_fits(1 << 29, 3)
-    api.check_fits(1 << 30, 1)
+    assert api.check_fits(1 << 30, 3) == "v5"
+    assert api._select_engine(SortConfig(), _card_keys(1 << 30), 3) == "v5"
+    g = te5._v5_geometry(1 << 30, 3, SortConfig())
+    assert g.nb_want * 1.3 < g.rmax * g.rmax
+    assert api.check_fits(1 << 29, 3) == "v4"
+    assert api.check_fits(1 << 30, 1) == "v4"
+    # W, S and the terminal scratch of 2^30 pairs, with the planes, fit
+    # under 60 GiB; the CPU tensors of the same call stay on torch.sort
+    assert te5.v5_bytes(1 << 30, 3, SortConfig()) + 12 * (1 << 30) \
+        < 0.75 * (80 << 30)
+    assert api._select_engine(SortConfig(), torch.zeros(4), 3) == "torch"
 
 
 def test_check_payload_shards_and_errors():

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from inplacemsdradixsort_tpu_torch import SortConfig, sort, sort_with_indices
-from inplacemsdradixsort_tpu_torch.ops import deep, engine_v4
+from inplacemsdradixsort_tpu_torch.ops import deep, engine_v4, engine_v5
 from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as kv4
+from inplacemsdradixsort_tpu_torch.ops import kernels_v5 as kv5
 
 pytestmark = pytest.mark.cuda
 
@@ -286,3 +287,129 @@ def test_wrappers_raise_on_mixed_devices(cuda):
     bounds = torch.zeros(8, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         kv4.hist_level(src, meta, bounds, 1, 24, 8)
+
+
+# ----------------------------------------------------------------- v5
+
+# the reference tests' v5 geometry with a terminal class that holds a
+# region's pads, so that the path runs without retries
+V5_TINY = dict(v5_pitch_rows=64, v3_sort_rows=512, v3_rmax=8,
+               v3_cap_rows=256, min_engine_n=1)
+
+
+def _record_v5(fn):
+    """Run ``fn`` with the v5 wrappers recording their inputs, W cloned
+    before each in-place launch."""
+    calls = []
+    wrappers = {k: getattr(kv5, k) for k in kv5.LAUNCHES}
+
+    def rec(name):
+        def run(*a, **kw):
+            calls.append((name, [_clone(t) for t in a], kw))
+            return wrappers[name](*a, **kw)
+        return run
+    for k in wrappers:
+        setattr(kv5, k, rec(k))
+    try:
+        fn()
+    finally:
+        for k, f in wrappers.items():
+            setattr(kv5, k, f)
+    return wrappers, calls
+
+
+def _canonical_w(w, cnt, base, slot, ntiles, pitch, rmax):
+    """W with every range's stream replaced by its canonical form."""
+    boff, bslot = kv5.block_slots(cnt, base, slot, ntiles, pitch, rmax,
+                                  w[0].numel() // kv5.BLK + rmax)
+    total = base.reshape(ntiles, rmax)[-1].long()
+    out = tuple(p.clone() for p in w)
+    for d, planes in kv5.canonical_regions(w, boff, bslot, total):
+        nb = int(total[d].item()) // kv5.BLK + 1
+        rows = bslot[int(boff[d].item()):][:nb]
+        for o, p in zip(out, planes):
+            kv5.blocks_of(o)[rows] = p.view(nb, kv5.BLK)
+    return out
+
+
+def _replay_v5(wrappers, calls):
+    """Rerun every recorded v5 launch and its plain version on clones of
+    the same W: block_permute bitwise, seqroute_level region by region
+    (sorted real prefix, then the pads) and bitwise outside the
+    regions."""
+    for name, a, kw in calls:
+        got = wrappers[name](_clone(a[0]), *a[1:], **kw)
+        if name == "block_permute":
+            want = kv5.block_permute_ref(_clone(a[0]), *a[1:], **kw)
+        else:
+            want = kv5.seqroute_level_ref(_clone(a[0]), *a[1:], **kw)
+            got, want = (_canonical_w(x, *a[2:4], a[4], *a[6:9])
+                         for x in (got, want))
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+
+
+@pytest.mark.parametrize("nvals", [0, 1, 3])
+def test_v5_kernels_match_plain_versions(cuda, nvals):
+    """A tiny-geometry v5 sort with 0, 1 and 3 payload planes: every
+    seqroute_level and block_permute launch equal to its plain version,
+    and the sort equal to numpy's lexicographic order."""
+    n = 5 * kv5.BLK + 321
+    planes = [_keys(n, 20 + p) for p in range(1 + nvals)]
+    t = [torch.from_numpy(x.view(np.int32)).to(cuda) for x in planes]
+    out = []
+    wrappers, calls = _record_v5(lambda: out.append(engine_v5.sort_v5(
+        t[0], tuple(t[1:]), SortConfig(**V5_TINY))))
+    assert {c[0] for c in calls} == set(wrappers)
+    _replay_v5(wrappers, calls)
+    order = np.lexsort(planes[::-1])
+    keys, vals = out[0]
+    for got, x in zip((keys,) + vals, planes):
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      x[order])
+
+
+def test_block_permute_long_cycle(cuda):
+    """One cycle through every slot but a fixed one, and 2-cycles, on 3
+    planes: bitwise equal to the plain version."""
+    nslots = 70
+    src = np.arange(nslots)
+    ring = [s for s in range(nslots) if s not in (5, 60, 61)]
+    src[ring] = np.roll(ring, -1)
+    src[[60, 61]] = [61, 60]
+    w = tuple(torch.from_numpy(_keys(nslots * kv5.BLK, 30 + p)
+                               .view(np.int32)).view(-1, LANES).to(cuda)
+              for p in range(3))
+    off, slots = (torch.from_numpy(x).to(cuda)
+                  for x in engine_v5.permute_cycles(src))
+    got = kv5.block_permute(_clone(w), off, slots)
+    want = kv5.block_permute_ref(_clone(w), off, slots)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    for g, x in zip(got, w):
+        assert torch.equal(g.view(nslots, -1), x.view(nslots, -1)[
+            torch.from_numpy(src).to(cuda)])
+
+
+@pytest.mark.parametrize("kind", ["pairs_u64", "u32", "maxheavy"])
+def test_v5_default_geometry_on_card(cuda, kind):
+    """api.sort(engine="v5") at the default geometry (2048-row tiles,
+    several staging windows): equal to numpy, no fallback."""
+    rng = np.random.default_rng(11)
+    n = (1 << 24) + 77
+    key = rng.integers(0, 2**32, n, dtype=np.uint32)
+    if kind == "maxheavy":
+        key[rng.random(n) < 0.3] = 0xFFFFFFFF
+    rid = (rng.integers(0, 2**64, n, dtype=np.uint64)
+           if kind == "pairs_u64" else None)
+    engine_v4.reset_fallback_stats()
+    kv5.reset_launches()
+    res = sort(torch.from_numpy(key).to(cuda),
+               None if rid is None else torch.from_numpy(rid).to(cuda),
+               config=SortConfig(engine="v5"))
+    assert all(kv5.LAUNCHES.values()), kv5.LAUNCHES
+    order = (np.argsort(key, kind="stable") if rid is None
+             else np.lexsort((rid, key)))
+    np.testing.assert_array_equal(res.keys.cpu().numpy(), key[order])
+    if rid is not None:
+        np.testing.assert_array_equal(res.rids.cpu().numpy(), rid[order])
+    assert engine_v4.FALLBACK_STATS == dict.fromkeys(
+        engine_v4.FALLBACK_STATS, 0), engine_v4.FALLBACK_STATS

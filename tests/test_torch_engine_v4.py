@@ -273,12 +273,19 @@ def test_retry_ladder_then_fallback(monkeypatch):
 
 @pytest.mark.parametrize("engine", ["v5", "lsb"])
 def test_not_implemented(engine):
-    """Engines not ported yet raise, naming their ROADMAP item (rids, the
-    key types, sort_with_indices and payload planes in sort_v4 are
-    ported: tests/test_torch_api.py and the multi-plane cases here)."""
-    x = torch.from_numpy(_keys("uniform", 100, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.sort(x, config=SortConfig(engine=engine))
+    """Engines not ported yet raise, naming their ROADMAP item; v5, which
+    raised here before it was ported, now sorts (rids, the key types,
+    sort_with_indices and payload planes in sort_v4 are ported too:
+    tests/test_torch_api.py and the multi-plane cases here)."""
+    x = _keys("uniform", 100, 1)
+    if engine == "lsb":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rt.sort(torch.from_numpy(x), config=SortConfig(engine=engine))
+        return
+    res = rt.sort(torch.from_numpy(x), config=SortConfig(
+        engine=engine, min_engine_n=1, v5_pitch_rows=64, v3_sort_rows=512,
+        v3_rmax=8, v3_cap_rows=256))
+    np.testing.assert_array_equal(res.keys.numpy(), np.sort(x))
 
 
 @pytest.mark.parametrize("nvals", [1, 2, 3])
@@ -331,6 +338,8 @@ def test_mamalloc_defaults_to_the_card():
 def test_import_leaves_jax_out():
     code = ("import sys, inplacemsdradixsort_tpu_torch, "
             "inplacemsdradixsort_tpu_torch.ops.engine_v4, "
+            "inplacemsdradixsort_tpu_torch.ops.engine_v5, "
+            "inplacemsdradixsort_tpu_torch.ops.kernels_v5, "
             "inplacemsdradixsort_tpu_torch.ops.deep, "
             "inplacemsdradixsort_tpu_torch.ops.keycodec, "
             "inplacemsdradixsort_tpu_torch.utils.checking, "
