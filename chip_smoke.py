@@ -29,28 +29,44 @@ lexicographic by (key, rid)):
   ``sort_v5_from_chunks(raw=True)`` at 2^26 keys, checked slab by slab
   with ``raw_check_2d``.  The 2^30 sort needs about 60 GB of the card
   while it is checked (inputs, W and two copies of W), about 36 GB
-  without the check.
+  without the check;
+- the v1 engine (``engine="pallas"`` at its default config: 2^15-element
+  tiles, 8 range bits, 8 block rows): uint32 keys at 2^28, (u32 key,
+  u32 rid = arange) pairs at 2^28, 2^24 keys with 30% 0xFFFFFFFF and
+  2^26 u64 keys with 8 distinct high words (done buckets, the low words
+  finished per bucket), each with its phase split; and ``sort_vmem`` at
+  2^15 and 2^20 (one ``ragged_sort`` launch over the whole input).
 
 The first sort of every input is checked launch by launch: each call of
 ``hist_level``, ``route_level``, ``terminal_write``, ``splice_runs``,
-``seqroute_level`` and ``block_permute`` in it (1-4 planes, at the
-shapes that path gives them) is held against the kernel's plain PyTorch
-version on the same CUDA tensors, exactly (route arenas through
-``canonical_runs``; seqroute's W region by region through
-``canonical_regions``, since the order inside a stream is not part of
-its contract; W is copied before the in-place launches).  The plain
-version replays the call in chunks of at most ``CHECK_CHUNK`` elements
-(tiles, buckets, runs or cycles), so the check fits beside the sort at
-every size.  Each call's
+``seqroute_level``, ``block_permute``, ``tile_sort``, ``distribute``,
+``ragged_sort`` and ``compact`` in it (at the shapes that path gives
+them) is held against the kernel's plain PyTorch version on the same
+CUDA tensors, exactly (route arenas through ``canonical_runs``;
+seqroute's W region by region through ``canonical_regions``, since the
+order inside a stream is not part of its contract; the v1 arenas on the
+rows each call defines; W and the v1 arenas are copied before the
+in-place launches).  The plain version replays the call in chunks of at
+most ``CHECK_CHUNK`` elements (tiles, buckets, runs, segments or
+cycles), so the check fits beside the sort at every size.  Each call's
 kernel time (CUDA events around the wrapper), plain time (host clock,
 synchronised) and bound (the bytes it must move, each input element read
 once and each output written once, at the H100 SXM's 3.35 TB/s) are
-summed per kernel, and for ``block_permute``, whose function one PyTorch
-call computes out of place, the time of ``index_select`` of W's blocks
-on the same copy of W (its library time; the port never calls it).  Then: the port's peak memory in a second sort, its
-time against what a user would otherwise run (``torch.sort`` on the
-keys; stable, plus a gather of the rids), and each kernel's time inside
-one 2^28 sort, keys only and pairs, and one 2^30 v5 sort of pairs.
+summed per kernel, and, where one PyTorch call computes a launch's
+function, that call's time on the same inputs, its result required
+equal to the kernel's (the library time; the port never calls it):
+``index_select`` for ``splice_runs``, ``block_permute`` (W's blocks, on
+the pre-launch copy), ``distribute`` and ``compact`` (gather indices
+built outside the timed call); ``torch.sort`` for keys-only
+``tile_sort`` launches (by row of tiles) and single-bucket
+``ragged_sort`` launches (``sort_vmem``).  Where the library call
+covers only some launches, the JSON record gives their count
+(``library_calls``) and the kernel's time on them
+(``library_kernel_ms``) beside ``library_ms``.  Then: the port's peak memory
+in a second sort, its time against what a user would otherwise run
+(``torch.sort`` on the keys; stable, plus a gather of the rids), and
+each kernel's time inside one 2^28 sort, keys only and pairs (v4 and
+v1), and one 2^30 v5 sort of pairs.
 
 Per-call check lines go to ``chiprun_out/chip_smoke_calls.log``; stdout
 has one line per (input, kernel, plane count).  Any failure raises
@@ -99,6 +115,13 @@ V5_PAIRS_LOGN = 30                 # BASELINE.md's shape and size
 V5_KEYS_LOGN = 28                  # keys on v5 beside v4
 V5_SMALL_LOGN = 24                 # value fill; retry into the deep tier
 V5_RAW_LOGN = 26                   # sort_v5_from_chunks(raw=True)
+# v1 (engine="pallas", default config): (label, log2 n, key kind, rid
+# kind, share of 0xFFFFFFFF, timed rounds); then sort_vmem sizes
+V1_CASES = [("v1 keys 2^28", 28, "u32", None, 0.0, 2),
+            ("v1 pairs u32+u32(arange) 2^28", 28, "u32", "arange", 0.0, 1),
+            ("v1 maxheavy 2^24", 24, "u32", None, 0.3, 1),
+            ("v1 u64 few-hi 2^26", 26, "few_hi", None, 0.0, 1)]
+V1_VMEM_LOGN = [15, 20]
 KERNELS = {
     # name: (wrapper module, source, the TPU kernel's pallas_call)
     "hist_level": ("kv4", "inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
@@ -118,6 +141,18 @@ KERNELS = {
     "block_permute": ("kv5",
                       "inplacemsdradixsort_tpu_torch/csrc/kernels_v5.cu",
                       "inplacemsdradixsort_tpu/ops/kernels_v5.py:501"),
+    "tile_sort": ("pk",
+                  "inplacemsdradixsort_tpu_torch/csrc/pallas_kernels.cu",
+                  "inplacemsdradixsort_tpu/ops/pallas_kernels.py:115"),
+    "distribute": ("pk",
+                   "inplacemsdradixsort_tpu_torch/csrc/pallas_kernels.cu",
+                   "inplacemsdradixsort_tpu/ops/pallas_kernels.py:314"),
+    "ragged_sort": ("pk",
+                    "inplacemsdradixsort_tpu_torch/csrc/pallas_kernels.cu",
+                    "inplacemsdradixsort_tpu/ops/pallas_kernels.py:430"),
+    "compact": ("pk",
+                "inplacemsdradixsort_tpu_torch/csrc/pallas_kernels.cu",
+                "inplacemsdradixsort_tpu/ops/pallas_kernels.py:620"),
 }
 LANES = 128
 BLK = 256 * LANES                  # v5's exchange block, in elements
@@ -153,7 +188,8 @@ def make_u64(n, seed, dev):
 def make_input(n, key, rid, seed, dev):
     """(keys, rids or None) of the named kinds: "u32", "u64", "few_hi"
     (u64 keys with 8 distinct high words) or "heavy_pairs" (u32 keys,
-    half of them 7, with u32 rids)."""
+    half of them 7, with u32 rids); rids "u32", "u64" or "arange" (the
+    uint32 indices)."""
     if key == "u32":
         keys = make_keys(n, 0.0, seed, dev)
     elif key == "u64":
@@ -174,7 +210,10 @@ def make_input(n, key, rid, seed, dev):
                                < 0.5] = 7
         rid = "u32"
     rids = None
-    if rid == "u32":
+    if rid == "arange":
+        rids = torch.arange(n, dtype=torch.int32, device=dev) \
+            .view(torch.uint32)
+    elif rid == "u32":
         rids = make_keys(n, 0.0, seed + 2, dev)
     elif rid == "u64":
         rids = make_u64(n, seed + 2, dev)
@@ -465,11 +504,217 @@ def library_permute(m, a, out, before):
     return ms
 
 
+def library_splice(m, a, out, _):
+    """One PyTorch call per plane computes splice_runs' gather:
+    ``index_select`` of the flattened source by the index of every run's
+    real prefix (built first, not timed); the result (unbiased when the
+    call asks, outside the timed call) must equal the kernel's elements
+    at the runs' output offsets."""
+    bt = a["btbl"].long()
+    real = torch.minimum(bt[:, 2], bt[:, 1].clamp(max=a["max_occ"])
+                         * LANES).clamp(min=0)
+    idx = m.kv4._spans(bt[:, 0] * LANES, real)
+    pos = m.kv4._spans(bt[:, 5], real)
+    ms = 0
+    for o, src in zip(out, a["srcs"]):
+        lib, t = _plain(torch.index_select, src.reshape(-1), 0, idx)
+        ms += t
+        if a["unbias_output"]:
+            lib ^= BIAS
+        assert torch.equal(lib, o[pos]), "splice index_select differs"
+        del lib
+    return ms
+
+
+def _pair_planes(p):
+    """The non-None planes of a (keys, vals) pair."""
+    return tuple(t for t in p[:2] if t is not None)
+
+
+def check_tile_sort(m, a, out, before):
+    """Tile chunk by tile chunk, the plain version sorts a copy of the
+    pre-launch tiles; sorted tiles and counts must be equal."""
+    tr = a["tile_rows"]
+    nt = a["keys"].shape[0] // tr
+    per = max(1, CHECK_CHUNK // (tr * LANES))
+    err = ms = 0
+    for t0 in range(0, nt, per):
+        t1 = min(nt, t0 + per)
+        rows = slice(t0 * tr, t1 * tr)
+        k = before["keys"][rows].clone()
+        v = None if before["vals"] is None else before["vals"][rows].clone()
+        want, t = _plain(m.pk.tile_sort_ref, k, v, a["bounds"][t0:t1],
+                         a["data_elems"][t0:t1], tr)
+        ms += t
+        got = tuple(x[rows] for x in _pair_planes(out)) + (out[2][t0:t1],)
+        err = max(err, _err(got, _pair_planes(want) + (want[2],)))
+    return err, ms
+
+
+def check_distribute(m, a, out, _):
+    """Tile chunk by tile chunk, the plain version stores the chunk's runs
+    into a fresh arena; the stored rows must be equal."""
+    tr = a["tile_rows"]
+    nt, r = a["slot_rows"].shape
+    per = max(1, CHECK_CHUNK // (tr * LANES))
+    err = ms = 0
+    for t0 in range(0, nt, per):
+        t1 = min(nt, t0 + per)
+        rows = slice(t0 * tr, t1 * tr)
+        sub = {k: a[k][t0:t1].contiguous()
+               for k in ("slot_rows", "run_starts", "run_lens")}
+        want, t = _plain(
+            m.pk.distribute_ref, a["keys"][rows],
+            None if a["vals"] is None else a["vals"][rows], sub["slot_rows"],
+            sub["run_starts"], sub["run_lens"], a["out_rows"], tr)
+        ms += t
+        pos = _distribute_positions(m, sub)
+        err = max(err, _err(tuple(x.view(-1)[pos] for x in _pair_planes(out)),
+                            tuple(x.view(-1)[pos]
+                                  for x in _pair_planes(want))))
+        del want
+    return err, ms
+
+
+def _distribute_positions(m, a):
+    """Flat output positions of every stored run's rows, run by run."""
+    ln = a["run_lens"].reshape(-1).long()
+    live = ln > 0
+    return m.kv4._spans(a["slot_rows"].reshape(-1).long()[live] * LANES,
+                        (ln[live] + LANES - 1) // LANES * LANES)
+
+
+def check_ragged(m, a, out, before):
+    """Bucket group by bucket group, the plain version sorts the live
+    buckets of the pre-launch copy in place (dummies are skipped, by both
+    versions); the whole arenas must then be equal."""
+    pads = a["pad_elems"].long()
+    gid, ngroups = _groups(torch.where(pads > 0, a["class_rows"] * LANES,
+                                       0))
+    k, v = before["keys"], before["vals"]
+    ms = 0
+    for g in range(ngroups):
+        sel = torch.where(gid == g, pads, 0).to(torch.int32)
+        _, t = _plain(m.pk.ragged_sort_ref, k, v, a["starts_row"], sel,
+                      a["class_rows"])
+        ms += t
+    return _err(_pair_planes(out), _pair_planes((k, v))), ms
+
+
+def check_compact(m, a, out, _):
+    """Segment group by segment group, the plain version joins the
+    group's segments; they must equal the kernel's output at the group's
+    offset."""
+    ln = a["lens"].long()
+    gid, ngroups = _groups(ln)
+    first = torch.searchsorted(gid, torch.arange(ngroups + 1,
+                                                 device=gid.device)).tolist()
+    off = (torch.cumsum(ln, 0) - ln).tolist() + [int(ln.sum().item())]
+    err = ms = 0
+    for g in range(ngroups):
+        s0, s1 = first[g], first[g + 1]
+        n = off[s1] - off[s0]
+        want, t = _plain(m.pk.compact_ref, a["keys"], a["vals"],
+                         a["starts_row"][s0:s1], a["lens"][s0:s1],
+                         -(-n // LANES))
+        ms += t
+        err = max(err, _err(
+            tuple(x.view(-1)[off[s0]:off[s1]] for x in _pair_planes(out)),
+            tuple(x.view(-1)[:n] for x in _pair_planes(want))))
+    return err, ms
+
+
+def library_tile_sort(m, a, out, before):
+    """Keys-only launches: ``torch.sort(keys.view(ntiles, -1), dim=1)`` of
+    the pre-launch tiles, their slack masked to SENT first (not timed);
+    its values must equal the kernel's tiles.  Pairs: no one call sorts
+    by (key, val), so None."""
+    if a["vals"] is not None:
+        return None
+    te = a["tile_rows"] * LANES
+    k = before["keys"].view(-1, te)
+    live = torch.arange(te, device=k.device)[None, :] \
+        < a["data_elems"].long()[:, None]
+    k = torch.where(live, k, m.kv4.SENT)
+    lib, t = _plain(torch.sort, k, 1)
+    assert torch.equal(lib.values, out[0].view(-1, te)), \
+        "tile torch.sort differs"
+    return t
+
+
+def library_distribute(m, a, out, _):
+    """``index_select`` of the flattened source (with one SENT appended,
+    for the lanes after each run) by the index of every stored row's
+    elements (built first, not timed); it must equal the kernel's stored
+    rows."""
+    te = a["tile_rows"] * LANES
+    nt, r = a["slot_rows"].shape
+    ln = a["run_lens"].reshape(-1).long()
+    live = ln > 0
+    ln = ln[live]
+    padded = (ln + LANES - 1) // LANES * LANES
+    src0 = (torch.arange(nt, device=ln.device).repeat_interleave(r) * te
+            + a["run_starts"].reshape(-1).long())[live]
+    e = m.kv4._spans(torch.zeros_like(src0), padded)
+    sent = a["keys"].numel()
+    idx = torch.where(e < torch.repeat_interleave(ln, padded),
+                      torch.repeat_interleave(src0, padded) + e, sent)
+    pos = _distribute_positions(m, a)
+    ms = 0
+    for o, x in zip(_pair_planes(out), _pair_planes((a["keys"],
+                                                     a["vals"]))):
+        ext = torch.cat([x.view(-1), x.new_full((1,), m.kv4.SENT)])
+        lib, t = _plain(torch.index_select, ext, 0, idx)
+        ms += t
+        assert torch.equal(lib, o.view(-1)[pos]), "distribute differs"
+        del ext, lib
+    return ms
+
+
+def library_ragged(m, a, out, before):
+    """Single-bucket launches (``sort_vmem``): ``torch.sort`` of the
+    bucket, its tail past the pad masked to SENT first (not timed); it
+    must equal the kernel's bucket.  Several buckets: None (a gather of
+    the buckets would come first)."""
+    if a["starts_row"].numel() != 1 or a["vals"] is not None:
+        return None
+    e = a["class_rows"] * LANES
+    s0 = int(a["starts_row"][0].item()) * LANES
+    k = before["keys"].view(-1)[s0:s0 + e]
+    k = torch.where(torch.arange(e, device=k.device)
+                    < a["pad_elems"][0].long(), k, m.kv4.SENT)
+    lib, t = _plain(torch.sort, k)
+    assert torch.equal(lib.values, out[0].view(-1)[s0:s0 + e]), \
+        "bucket torch.sort differs"
+    return t
+
+
+def library_compact(m, a, out, _):
+    """``index_select`` of the flattened source by the index of every
+    segment's elements (built first, not timed); it must equal the
+    kernel's first n elements."""
+    ln = a["lens"].long()
+    idx = m.kv4._spans(a["starts_row"].long() * LANES, ln)
+    ms = 0
+    for o, x in zip(_pair_planes(out), _pair_planes((a["keys"],
+                                                     a["vals"]))):
+        lib, t = _plain(torch.index_select, x.view(-1), 0, idx)
+        ms += t
+        assert torch.equal(lib, o.view(-1)[:idx.numel()]), "compact differs"
+        del lib
+    return ms
+
+
 CHECKS = {"hist_level": check_hist, "route_level": check_route,
           "terminal_write": check_terminal, "splice_runs": check_splice,
-          "seqroute_level": check_seqroute, "block_permute": check_permute}
-LIBRARY = {"block_permute": library_permute}   # kernels with a one-call
-                                                # PyTorch equivalent
+          "seqroute_level": check_seqroute, "block_permute": check_permute,
+          "tile_sort": check_tile_sort, "distribute": check_distribute,
+          "ragged_sort": check_ragged, "compact": check_compact}
+# kernels with a one-call PyTorch equivalent (on some or all launches:
+# None where a launch has none)
+LIBRARY = {"splice_runs": library_splice, "block_permute": library_permute,
+           "tile_sort": library_tile_sort, "distribute": library_distribute,
+           "ragged_sort": library_ragged, "compact": library_compact}
 
 
 def _live(meta, ntiles, pitch):
@@ -526,6 +771,32 @@ def call_bytes_v5(name, a):
                 + moved)
 
 
+def call_bytes_v1(name, a, out):
+    """``call_bytes`` of the v1 kernels, every plane: tile_sort reads each
+    tile's data elements (the slack past them is taken as SENT, not read)
+    and writes every tile; distribute reads each run and writes its rows;
+    ragged_sort reads each live bucket's pad and writes the bucket;
+    compact reads and writes each segment; and their tables."""
+    planes = 1 if a["vals"] is None else 2
+    if name == "tile_sort":
+        nt, r = a["bounds"].shape
+        read = int(a["data_elems"].long().clamp(
+            0, a["tile_rows"] * LANES).sum().item())
+        return 4 * (planes * (read + a["keys"].numel()) + 2 * nt * r + nt)
+    if name == "distribute":
+        ln = a["run_lens"].long()
+        wrote = int(((ln + LANES - 1) // LANES * LANES).sum().item())
+        return 4 * (planes * (int(ln.sum().item()) + wrote) + 3 * ln.numel())
+    if name == "ragged_sort":
+        pads = a["pad_elems"].long()
+        live = pads > 0
+        read = int(pads.clamp(max=a["class_rows"] * LANES).sum().item())
+        wrote = int(live.sum().item()) * a["class_rows"] * LANES
+        return 4 * (planes * (read + wrote) + 2 * pads.numel())
+    ln = a["lens"].long()
+    return 4 * (2 * planes * int(ln.sum().item()) + 2 * ln.numel())
+
+
 class Checker:
     """While ``run`` drives a sort, every call of the kernel wrappers
     launches the kernel as the path asked, then replays the call on its
@@ -534,7 +805,8 @@ class Checker:
     def __init__(self, mods, wrappers, log):
         self.mods, self.wrappers, self.log = mods, wrappers, log
         self.totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                  library_ms=0.0, max_abs_err=0)
+                                  library_ms=0.0, max_abs_err=0,
+                                  library_calls=0, library_kernel_ms=0.0)
                        for name in wrappers}
         self.by_input = {}      # (input, kernel, planes) -> sums
 
@@ -563,10 +835,17 @@ class Checker:
         kern = self.wrappers[name]
         inplace = {"terminal_write": "outs", "seqroute_level": "w",
                    "block_permute": "w"}.get(name)
+        inplace_v1 = name in ("tile_sort", "ragged_sort")
 
         def call(*args, **kw):
             a = named(kern, args, kw)
+            if KERNELS[name][0] == "pk":
+                # sort_vmem passes its tables on the host
+                a = {k: v.to(a["keys"].device) if torch.is_tensor(v) else v
+                     for k, v in a.items()}
             before = _clone(tuple(a[inplace])) if inplace else None
+            if inplace_v1:
+                before = {k: _clone(a[k]) for k in ("keys", "vals")}
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             out = kern(*args, **kw)
@@ -577,12 +856,22 @@ class Checker:
                    if name in LIBRARY else None)
             err, pms = CHECKS[name](self.mods, a, out, before)
             del before
-            bound = (call_bytes_v5(name, a) if KERNELS[name][0] == "kv5"
+            mod = KERNELS[name][0]
+            bound = (call_bytes_v5(name, a) if mod == "kv5"
+                     else call_bytes_v1(name, a, out) if mod == "pk"
                      else call_bytes(name, a)) / HBM_BYTES_PER_S * 1e3
-            planes = 1 if name == "hist_level" else len(
-                a["w"] if "w" in a else a["srcs"])
+            if mod == "pk":
+                planes = 1 if a["vals"] is None else 2
+            else:
+                planes = 1 if name == "hist_level" else len(
+                    a["w"] if "w" in a else a["srcs"])
             extra = {k: a[k] for k in ("ntiles", "rmax", "cap_rows",
-                                       "class_id", "nlex") if k in a}
+                                       "class_id", "nlex", "tile_rows",
+                                       "out_rows", "class_rows") if k in a}
+            if mod == "pk":
+                extra["rows"] = a["keys"].shape[0]
+                if name in ("ragged_sort", "compact"):
+                    extra["buckets"] = a["starts_row"].numel()
             if name == "block_permute":
                 off = a["cyc_off"].long()
                 extra = dict(cycles=off.numel() - 1,
@@ -599,6 +888,9 @@ class Checker:
             t["plain_ms"] += pms
             t["bound_ms"] += bound
             t["library_ms"] += lms or 0.0
+            if lms is not None:
+                t["library_calls"] += 1
+                t["library_kernel_ms"] += ms
             r = self.by_input.setdefault(
                 (self.label, name, planes),
                 dict(calls=0, err=0, ms=0.0, pms=0.0, bound=0.0, lib=0.0))
@@ -627,6 +919,8 @@ def main():
     from inplacemsdradixsort_tpu_torch.ops import engine_v5
     from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as kv4
     from inplacemsdradixsort_tpu_torch.ops import kernels_v5 as kv5
+    from inplacemsdradixsort_tpu_torch.ops import pallas_engine
+    from inplacemsdradixsort_tpu_torch.ops import pallas_kernels as pk
     from inplacemsdradixsort_tpu_torch.utils.checking import (
         checksum, raw_check_2d)
 
@@ -642,13 +936,13 @@ def main():
 
     # ------------------------------------------------------------ build
     t0 = time.perf_counter()
-    _build.build(verbose=True)          # one nvcc per source, in parallel
-    for name in _build.SOURCES:
-        _build.library(name)
+    print(f"build: {_build.build(verbose=True).name}")   # one nvcc
+    _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     cfg = SortConfig()
     v5cfg = dataclasses.replace(cfg, engine="v5")
-    mods = types.SimpleNamespace(kv4=kv4, kv5=kv5)
+    v1cfg = dataclasses.replace(cfg, engine="pallas")
+    mods = types.SimpleNamespace(kv4=kv4, kv5=kv5, pk=pk)
     wrappers = {name: getattr(getattr(mods, mod), name)
                 for name, (mod, _, _) in KERNELS.items()}
     os.makedirs(os.path.dirname(CALL_LOG), exist_ok=True)
@@ -664,6 +958,11 @@ def main():
         keys, rids = make_input(1 << logn, kk, rk, SEED - 7 - logn, dev)
         sort(keys, rids, config=v5cfg)
         del keys, rids
+    for kk, rk in [("u32", None), ("u32", "arange"), ("few_hi", None)]:
+        keys, rids = make_input(1 << 20, kk, rk, SEED - 11, dev)
+        sort(keys, rids, config=v1cfg)
+        del keys, rids
+    pallas_engine.sort_vmem(make_keys(1 << 12, 0.0, SEED - 12, dev))
     torch.cuda.synchronize()
 
     # ------------------------------------------------------ main paths
@@ -705,12 +1004,13 @@ def main():
         print(f"main {label} one sort: {total * 1e3:.3f} ms")
 
     def counts():
-        return {**kv4.LAUNCHES, **kv5.LAUNCHES}
+        return {**kv4.LAUNCHES, **kv5.LAUNCHES, **pk.LAUNCHES}
 
     def path(label, names):
         """Open a main path: counts to 0; returns the closing check."""
         kv4.reset_launches()
         kv5.reset_launches()
+        pk.reset_launches()
         engine_v4.reset_fallback_stats()
 
         def close():
@@ -747,7 +1047,9 @@ def main():
         res = checker.run(label, lambda: sort(keys, rids, config=config))
         ran_v5 = kv5.LAUNCHES["seqroute_level"] > seq0
         stats = {k: engine_v4.FALLBACK_STATS[k] - before[k] for k in before}
-        if engine is not None:
+        if engine == "v1":
+            assert pk.LAUNCHES["tile_sort"] > 0 and not ran_v5, label
+        elif engine is not None:
             assert ran_v5 == (engine == "v5"), (label, engine, ran_v5)
         assert_equal(res.keys, ref[0], label)
         if rids is not None:
@@ -758,7 +1060,8 @@ def main():
         expect(stats)
         peak = peak_of(lambda: sort(keys, rids, config=config))
         print(f"main {label}: bitwise equal to the torch reference, "
-              f"engine {'v5' if ran_v5 else 'v4'}, fallbacks {stats}, port "
+              f"engine {engine or ('v5' if ran_v5 else 'v4')}, fallbacks "
+              f"{stats}, port "
               f"peak {peak:.3f} GiB over its inputs")
         fns = {"port": lambda: sort(keys, rids, config=config),
                "torch": lambda: library_sort(keys, rids)}
@@ -844,7 +1147,8 @@ def main():
 
     # ---- the in-place v5 engine
     torch.cuda.empty_cache()
-    close = path("v5", list(KERNELS))
+    close = path("v5", [k for k, (mod, _, _) in KERNELS.items()
+                        if mod != "pk"])
     big = V5_PAIRS_LOGN
     held = held_bytes(1 << big, torch.uint32, torch.uint64)
     fits = check_fits(1 << big, 3, dev, cfg, held)
@@ -889,11 +1193,47 @@ def main():
     del res, chunks
     close()
 
+    # ---- the v1 engine (engine="pallas", default config)
+    torch.cuda.empty_cache()
+    close = path("v1", ["tile_sort", "distribute", "ragged_sort",
+                        "compact"])
+    for label, logn, kk, rk, heavy, rounds in V1_CASES:
+        keys, rids = ((make_keys(1 << logn, heavy, SEED + 13 + logn, dev),
+                       None) if heavy else
+                      make_input(1 << logn, kk, rk, SEED + 13 + logn, dev))
+        run_case(label, keys, rids, rounds, no_fallback(label),
+                 config=v1cfg, engine="v1")
+        res = sort(keys, rids, config=v1cfg, timing=True)
+        print(f"main {label} phases (host clock, synchronised):")
+        print(res.pretty_times())
+        del res
+        if logn == 28:
+            breakdown(label, lambda: sort(keys, rids, config=v1cfg))
+        del keys, rids
+    for logn in V1_VMEM_LOGN:
+        label = f"v1 sort_vmem 2^{logn}"
+        x = make_keys(1 << logn, 0.0, SEED + 17 + logn, dev)
+        got = checker.run(label, lambda: pallas_engine.sort_vmem(x))
+        assert_equal(got, torch_reference(x, None)[0], label)
+        t = host_ms({"port": lambda: pallas_engine.sort_vmem(x),
+                     "torch": lambda: library_sort(x, None)})
+        print(f"main {label}: bitwise equal to the torch reference; port "
+              f"median {t['port']:.3f} ms, torch.sort median "
+              f"{t['torch']:.3f} ms; 4 runs each, alternated")
+        del x, got
+    close()
+
     log.close()
     checked = {name for _, name, _ in checker.by_input}
     assert checked == set(KERNELS), f"kernels never checked: {checked}"
     print(f"main launches (all paths): {launches}")
     totals = checker.totals
+    for name in LIBRARY:
+        t = totals[name]
+        print(f"library {name}: {t['library_ms']:.4f} ms over "
+              f"{t['library_calls']} checked launches, whose kernel time is "
+              f"{t['library_kernel_ms']:.4f} ms (all checked launches: "
+              f"{t['ms']:.4f} ms)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
@@ -903,7 +1243,12 @@ def main():
          "bound_ms": round(totals[name]["bound_ms"], 4),
          "bound_by": "bytes",
          "library_ms": (round(totals[name]["library_ms"], 4)
-                        if name in LIBRARY else None)}
+                        if name in LIBRARY else None),
+         # the launches library_ms covers, and the kernel's time on them
+         "library_calls": (totals[name]["library_calls"]
+                           if name in LIBRARY else None),
+         "library_kernel_ms": (round(totals[name]["library_kernel_ms"], 4)
+                               if name in LIBRARY else None)}
         for name, (_, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,12 @@ the v4 engine (or, where v4 does not fit, the in-place v5 engine) sorts
 lexicographically by (key, *rid words), and joined back.  Data that is
 not a tensor goes to the CUDA device; a CPU tensor stays on the CPU,
 where ``engine="auto"`` runs plain ``torch.sort``.
+
+``engine="pallas"`` runs the v1 MSD engine (``ops/pallas_engine.py``) as
+the reference routes it: uint32 keys with no rids or rids of at most 32
+bits, and uint64 keys without rids; every other key type goes to
+``torch.sort``.  64-bit rids with uint32 keys raise ``ValueError``: the
+reference keeps only their low words there (ROADMAP.md C11).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, SortConfig
-from .ops import engine_v4, engine_v5, keycodec
+from .ops import engine_v4, engine_v5, keycodec, pallas_engine
 from .ops.kernels_v4 import LANES
 from .utils.checking import check  # re-exported
 from .utils.timing import PhaseTimer
@@ -88,7 +94,8 @@ def _select_engine(cfg: SortConfig, keys: torch.Tensor, nplanes: int,
                    held: Optional[int] = None) -> str:
     """``auto``: on a CUDA tensor the engine ``check_fits`` picks (v4, or
     v5 where v4 does not fit), on a CPU tensor plain ``torch.sort``.
-    ``v4`` and ``v5`` on a CPU tensor run the kernels' plain versions;
+    ``v4``, ``v5`` and ``pallas`` on a CPU tensor run the kernels' plain
+    versions;
     ``v5`` on the card must pass v5's own fit check (``fits_v5``).
     ``held``: as in ``fits_v5``."""
     engine = cfg.engine
@@ -96,10 +103,10 @@ def _select_engine(cfg: SortConfig, keys: torch.Tensor, nplanes: int,
         if not keys.is_cuda:
             return "torch"
         return check_fits(keys.shape[0], nplanes, keys.device, cfg, held)
-    if engine not in ("v4", "v5", "torch"):
+    if engine not in ("v4", "v5", "pallas", "torch"):
         raise NotImplementedError(
             f"engine {engine!r} is not ported yet (ROADMAP.md A8, A11-A13); "
-            "the port has 'auto', 'v4', 'v5' and 'torch'")
+            "the port has 'auto', 'v4', 'v5', 'pallas' and 'torch'")
     if engine == "v5" and keys.is_cuda:
         fits_v5(keys.shape[0], nplanes, keys.device, cfg, held)
     return engine
@@ -246,9 +253,13 @@ def sort(
             raise ValueError(
                 f"rids {tuple(rids.shape)} on {rids.device} do not match "
                 f"keys {tuple(keys.shape)} on {keys.device}")
+    timer = PhaseTimer(enabled=timing)
+    if config.engine == "pallas" and (
+            keys.dtype == torch.uint32
+            or (keys.dtype == torch.uint64 and rids is None)):
+        return _sort_pallas(keys, rids, config, timer)
     kplanes = _key_planes(keys.contiguous())
     vplanes = _rid_planes(rids) if rids is not None else ()
-    timer = PhaseTimer(enabled=timing)
     engine = _select_engine(
         config, keys, len(kplanes) + len(vplanes),
         held_bytes(keys.shape[0], keys.dtype,
@@ -259,7 +270,7 @@ def sort(
     elif engine == "v5":
         outs, vouts = engine_v5.sort_v5(kplanes[0], kplanes[1:] + vplanes,
                                         config, timer=timer)
-    else:
+    else:   # "torch", and "pallas" for the key types v1 does not take
         with timer.phase("local_sort"):
             outs, vouts = engine_v4._torch_fallback(
                 kplanes[0], kplanes[1:] + vplanes)
@@ -269,7 +280,29 @@ def sort(
     out_r = (_join_rids(vouts[nk - 1:], rids.dtype)
              if rids is not None else None)
     return SortResult(keys=out_k, rids=out_r, times=timer.report(),
-                      synced=engine != "torch")
+                      synced=engine in ("v4", "v5"))
+
+
+def _sort_pallas(keys: torch.Tensor, rids: Optional[torch.Tensor],
+                 config: SortConfig, timer: PhaseTimer) -> SortResult:
+    """``engine="pallas"`` for uint32 keys (rids of at most 32 bits,
+    returned in their dtype) and for uint64 keys without rids (split into
+    (hi, lo) words, ``msd_sort_u64``)."""
+    if keys.dtype == torch.uint64:
+        hi, lo = keycodec.split_u64(keys.contiguous())
+        shi, slo = pallas_engine.msd_sort_u64(hi, lo, config, timer=timer)
+        return SortResult(keys=keycodec.join_u64(shi, slo), rids=None,
+                          times=timer.report())
+    if rids is not None and rids.element_size() == 8:
+        raise ValueError(
+            f"engine='pallas' carries rids as one uint32 word; {rids.dtype} "
+            "rids would lose their high words (the reference keeps only the "
+            "low word): use engine='v4', which carries 64-bit rids "
+            "(ROADMAP.md C11)")
+    out_k, out_r = pallas_engine.msd_sort(keys, rids, config, timer=timer)
+    if rids is not None:
+        out_r = _join_rids((out_r.view(torch.int32),), rids.dtype)
+    return SortResult(keys=out_k, rids=out_r, times=timer.report())
 
 
 def sort_with_indices(keys, config: SortConfig = DEFAULT_CONFIG

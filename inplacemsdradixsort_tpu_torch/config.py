@@ -2,8 +2,8 @@
 
 The fields keep the names and defaults of ``inplacemsdradixsort_tpu``'s
 ``SortConfig``, so that one kwargs dict configures both packages in the
-parity tests.  Only the fields that the ported v4 and v5 paths read are
-here; the fields of engines not yet ported (v3, LSB, v1, distributed)
+parity tests.  Only the fields that the ported v4, v5 and v1 paths read
+are here; the fields of engines not yet ported (v3, LSB, distributed)
 join with their engines.  ``interpret`` has no counterpart: a kernel runs its
 plain PyTorch version when its input lies on the CPU.
 """
@@ -13,10 +13,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+LANES = 128
+
 
 @dataclasses.dataclass(frozen=True)
 class SortConfig:
     """Configuration of the single-device sort."""
+
+    # --- v1 engine layout (``engine="pallas"``) ---
+    tile_elems: int = 1 << 15     # elements per tile of the level tile sort
+    block_rows: int = 8           # rows of arena slack after every bucket
+    range_bits: int = 8           # log2(ranges) per distribution level
 
     # --- planner (sample -> bounds) ---
     sample_rate: float = 0.005    # sample fraction of N (msb_64.c:2320)
@@ -46,8 +53,20 @@ class SortConfig:
     term_classes: int = 3
 
     # "auto" (v4 for a CUDA tensor, v5 where v4 does not fit, torch for a
-    # CPU tensor) | "v4" | "v5" | "torch"
+    # CPU tensor) | "v4" | "v5" | "pallas" (the v1 engine) | "torch"
     engine: str = "auto"
+
+    def __post_init__(self):
+        # the reference's checks (``inplacemsdradixsort_tpu/config.py``)
+        if self.tile_elems % LANES:
+            raise ValueError(f"tile_elems={self.tile_elems} is not a "
+                             f"multiple of {LANES}")
+        if not 1 <= self.range_bits <= 12:
+            raise ValueError(f"range_bits={self.range_bits} outside [1, 12]")
+
+    @property
+    def tile_rows(self) -> int:
+        return self.tile_elems // LANES
 
 
 DEFAULT_CONFIG = SortConfig()

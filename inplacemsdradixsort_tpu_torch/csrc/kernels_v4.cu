@@ -2,10 +2,10 @@
 // level (hist_level, route_level), the terminal sort (terminal_write) and
 // the run splice of the deep tier (splice_runs).
 //
-// Built by ops/_build.py with
+// Built by ops/_build.py, with the other sources of csrc/, by one
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
-// into a shared library with a plain C interface, loaded with ctypes.
+// into one shared library with a plain C interface, loaded with ctypes.
 // Every launcher takes PyTorch's current stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
 //
@@ -19,39 +19,13 @@
 // ops/kernels_v4.py; the per-kernel notes there say which TPU kernel each
 // replaces and what bounds it on the H100.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bitonic.cuh"
 
 namespace {
 
-constexpr int LANES = 128;
-constexpr int32_t BIAS = INT32_MIN;
-constexpr int32_t SENT = INT32_MAX;
 constexpr int LEVEL_THREADS = 512;   // hist_level / route_level block
 constexpr int TERM_THREADS = 1024;   // terminal_write block
 constexpr int SPLICE_THREADS = 256;  // splice_runs block
-constexpr int MAX_PLANES = 4;
-
-// terminal shared-memory tile in tuples: NP * 4 bytes * tile <= 96 KiB,
-// so two blocks of 1024 threads fit an SM (227 KB a block at most)
-template <int NP>
-__host__ __device__ constexpr int term_tile() {
-  return NP == 1 ? 16384 : (NP <= 3 ? 8192 : 4096);
-}
-
-// The planes of one array, as NP pointers (sources are never written
-// through them).
-template <int NP>
-struct Planes {
-  int32_t* p[NP];
-};
-
-template <int NP>
-Planes<NP> planes_of(void* const* ptrs) {
-  Planes<NP> v;
-  for (int q = 0; q < NP; ++q) v.p[q] = (int32_t*)ptrs[q];
-  return v;
-}
 
 // First d in [0, rmax) with k <= b[d] for non-decreasing inclusive upper
 // bounds b; rmax when k exceeds every bound.
@@ -184,81 +158,17 @@ __global__ void __launch_bounds__(LEVEL_THREADS) route_level_kernel(
 // first `real` of them, xor xor_out, to out[out_off, out_off + real) of
 // every plane; mode 1 (keys only) writes `real` copies of fill to plane 0.
 //
-// Sort: a bitonic network in its all-ascending form (the first step of
-// each merge size k compares i with i ^ (k-1), the rest i with i ^ j).
-// Every compare moves the smaller tuple to the lower index, so the
-// bucket is padded to a power of two N with virtual all-SENT tuples that
-// are never stored: a pair whose upper index is >= m (the bucket's
-// length) is a no-op.  A bucket of up to term_tile<NP>() tuples sorts in
-// shared memory.  A larger one (up to 2*cap_rows*128 = 2^19 keys at
-// n >= 2^28; a block has at most 227 KB) sorts in a global scratch
-// segment of m tuples, one per plane, at scratch + q * scratch_len +
+// Sort: the network of bitonic.cuh over the bucket padded to a power of
+// two N with virtual all-SENT tuples.  A bucket of up to smem_tile<NP>()
+// tuples sorts in shared memory.  A larger one (up to 2*cap_rows*128 =
+// 2^19 keys at n >= 2^28; a block has at most 227 KB) sorts in a global
+// scratch segment of m tuples, one per plane, at scratch + q * scratch_len +
 // soff[bucket] (the wrapper packs the segments of the launch's large
 // buckets only): shared-memory tiles are sorted first; then for
 // every k > tile the steps with a partner distance >= tile run on global
 // memory and the rest of the steps of that k run on each tile in shared
 // memory.  One block owns the bucket, so __syncthreads() orders the
 // global steps.
-
-// Compare-exchange of tuples i < p: plane 0 first, the next plane only
-// on a tie (up to plane nlex); a swap moves every plane.
-template <int NP>
-__device__ __forceinline__ void cmpswap(const Planes<NP>& v, int i, int p,
-                                        int nlex) {
-  int32_t a = v.p[0][i], b = v.p[0][p];
-  bool gt = a > b;
-  if (a == b) {
-#pragma unroll
-    for (int q = 1; q < NP; ++q) {
-      if (q > nlex) break;
-      a = v.p[q][i];
-      b = v.p[q][p];
-      if (a != b) {
-        gt = a > b;
-        break;
-      }
-    }
-  }
-  if (gt) {
-#pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      const int32_t x = v.p[q][i];
-      v.p[q][i] = v.p[q][p];
-      v.p[q][p] = x;
-    }
-  }
-}
-
-// Lower index of pair q for a step with partner distance h (power of 2).
-__device__ __forceinline__ int pair_lo(int q, int h) {
-  return ((q & ~(h - 1)) << 1) | (q & (h - 1));
-}
-
-// Steps j = jtop, jtop/2, ..., 1 (i <-> i + j) over tuples [0, size).
-template <int NP>
-__device__ void smem_half_steps(const Planes<NP>& s, int size, int jtop,
-                                int nlex) {
-  for (int j = jtop; j >= 1; j >>= 1) {
-    for (int q = threadIdx.x; q < (size >> 1); q += blockDim.x) {
-      const int i = pair_lo(q, j);
-      cmpswap<NP>(s, i, i + j, nlex);
-    }
-    __syncthreads();
-  }
-}
-
-// Full sort of tuples [0, size), size a power of two.
-template <int NP>
-__device__ void smem_sort(const Planes<NP>& s, int size, int nlex) {
-  for (int k = 2; k <= size; k <<= 1) {
-    for (int q = threadIdx.x; q < (size >> 1); q += blockDim.x) {
-      const int i = pair_lo(q, k >> 1);
-      cmpswap<NP>(s, i, i ^ (k - 1), nlex);
-    }
-    __syncthreads();
-    smem_half_steps<NP>(s, size, k >> 2, nlex);
-  }
-}
 
 // One global step over tuples [0, N) with pair distance h; `flip` pairs i
 // with i ^ (2h - 1), otherwise with i + h.  Pairs reaching past m are
@@ -277,7 +187,7 @@ __device__ void global_step(const Planes<NP>& g, int N, int m, int h,
 template <int NP>
 __device__ void load_tile(const Planes<NP>& s, const Planes<NP>& g, int c,
                           int m) {
-  constexpr int T = term_tile<NP>();
+  constexpr int T = smem_tile<NP>();
   for (int i = threadIdx.x; i < T; i += blockDim.x) {
     const int e = c * T + i;
 #pragma unroll
@@ -289,7 +199,7 @@ __device__ void load_tile(const Planes<NP>& s, const Planes<NP>& g, int c,
 template <int NP>
 __device__ void store_tile(const Planes<NP>& s, const Planes<NP>& g, int c,
                            int m) {
-  constexpr int T = term_tile<NP>();
+  constexpr int T = smem_tile<NP>();
   for (int i = threadIdx.x; i < T; i += blockDim.x) {
     const int e = c * T + i;
     if (e < m) {
@@ -306,7 +216,7 @@ __global__ void __launch_bounds__(TERM_THREADS) terminal_write_kernel(
     Planes<NP> out, long long out_len, int32_t* __restrict__ scratch,
     const long long* __restrict__ soff, long long scratch_len, int nlex,
     int32_t xor_out, int cap_rows, int class_id) {
-  constexpr int T = term_tile<NP>();
+  constexpr int T = smem_tile<NP>();
   extern __shared__ int32_t smem[];   // NP planes of T tuples
   const int32_t* row = btbl + 8LL * blockIdx.x;
   const long long src_row = row[0];
@@ -426,7 +336,7 @@ int launch_terminal(void* const* src, long long src_len, const void* btbl,
                     void* scratch, const void* soff, long long scratch_len,
                     int nlex, int32_t xor_out, int cap_rows, int class_id,
                     cudaStream_t stream) {
-  const size_t shm = (size_t)NP * term_tile<NP>() * sizeof(int32_t);
+  const size_t shm = (size_t)NP * smem_tile<NP>() * sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(
       terminal_write_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)shm);
@@ -452,6 +362,7 @@ int launch_splice(void* const* src, long long src_len, const void* btbl,
 
 extern "C" {
 
+// CUDA's text for an error code a launcher of any source returned.
 const char* kv_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -2,10 +2,10 @@
 // sequential-block partition (seqroute_level) and the cycle block permute
 // (block_permute), both in place over the working buffer W.
 //
-// Built by ops/_build.py with
+// Built by ops/_build.py, with the other sources of csrc/, by one
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
-// into a shared library with a plain C interface, loaded with ctypes.
+// into one shared library with a plain C interface, loaded with ctypes.
 // Every launcher takes PyTorch's current stream, allocates nothing (the
 // wrapper passes staging, accumulators and cursors), does not
 // synchronise, and returns cudaGetLastError().
@@ -334,10 +334,6 @@ int launch_permute(void* const* wp, const int32_t* cyc_off,
 }  // namespace
 
 extern "C" {
-
-const char* kv_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
 
 // Plane pointers come as four arguments each (NULL past nplanes).
 int kv5_seqroute_level(void* w0, void* w1, void* w2, void* w3,

@@ -90,22 +90,22 @@ def _check_nlex(nlex: Optional[int], nplanes: int) -> int:
     return nlex
 
 
-def _call(lib: ctypes.CDLL, kernel: str, fn_name: str,
-          device: torch.device, *args) -> None:
-    """Run one C launcher of ``lib`` on ``device``'s current stream;
-    raise on the CUDA error it returns."""
+def _call(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+    """Run one C launcher of the kernel library on ``device``'s current
+    stream; raise on the CUDA error it returns."""
     if device.type != "cuda":
         raise ValueError(f"{kernel}: no kernel for device {device}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
+        err = getattr(_build.library(), fn_name)(*args,
+                                                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"{kernel}: CUDA error {err} ({_build.error_string(err)})")
 
 
 def _launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
-    _call(_build.library(), kernel, fn_name, device, *args)
+    _call(kernel, fn_name, device, *args)
     LAUNCHES[kernel] += 1
 
 

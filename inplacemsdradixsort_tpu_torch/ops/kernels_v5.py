@@ -28,7 +28,6 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import _build
 from . import kernels_v4 as kv4
 from .kernels_v4 import BIAS, LANES, SENT, _check, _check_planes, _p, _pp
 
@@ -50,7 +49,7 @@ def reset_launches() -> None:
 
 
 def _launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
-    kv4._call(_build.library("kernels_v5"), kernel, fn_name, device, *args)
+    kv4._call(kernel, fn_name, device, *args)
     LAUNCHES[kernel] += 1
 
 

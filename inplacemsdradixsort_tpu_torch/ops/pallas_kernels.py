@@ -1,0 +1,430 @@
+"""The v1 engine's four kernels, on PyTorch: ``tile_sort``,
+``distribute``, ``ragged_sort`` and ``compact`` (the reference's
+``inplacemsdradixsort_tpu/ops/pallas_kernels.py``, same signatures
+without ``interpret``).
+
+Each public function dispatches on the device of its input tensors: a
+CPU tensor runs the plain PyTorch version (``*_ref``), a CUDA tensor
+launches the hand-written kernels in ``csrc/pallas_kernels.cu`` and
+raises if that fails.  Nothing falls back from one to the other.  All
+four are CUDA C++ rather than Triton: they share the bitonic network,
+the launcher and the build of the v4 terminal kernel.
+
+Arenas are (rows, 128) int32 planes: keys in the sign-biased encoding
+(``bitonic.bias_u32``), and optionally one value plane; tuples order
+lexicographically by (key, val), and SENT (biased +inf in both planes)
+pads tiles, slots and buckets and sorts last.
+
+``tile_sort`` and ``ragged_sort`` sort in place and return their input
+tensors (the reference's executables donate them); ``distribute`` and
+``compact`` return new arenas, whose rows outside the runs or segments
+they store are uninitialised.
+
+The int32 tables of one call lie together on the arena's device or on
+the CPU.  ``distribute``, ``ragged_sort`` and ``compact`` raise
+``ValueError`` on tables that place a run, slot, live bucket or segment
+outside its arena, before either version runs: a few reductions over
+the tables where they lie (numpy on the host, a few microseconds for a
+small table) and one read of their flags, which costs a sync for tables
+on the card and none for tables on the host (then copied to the card
+with ``non_blocking``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import kernels_v4 as kv4
+from .bitonic import bitonic_sort
+from .kernels_v4 import LANES, SENT, _check, _p, _spans
+
+# the reference keeps a tile's R bounds, R counts and data count in one
+# (8, 128) SMEM table; the port keeps its limit so both refuse the same
+# configs (range_bits <= 8)
+TABLE_ENTRIES = 8 * LANES
+
+# launches of each kernel since the last reset (plain versions not counted)
+LAUNCHES = {"tile_sort": 0, "distribute": 0, "ragged_sort": 0,
+            "compact": 0}
+
+Pair = Tuple[torch.Tensor, Optional[torch.Tensor]]
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+    kv4._call(kernel, fn_name, device, *args)
+    LAUNCHES[kernel] += 1
+
+
+def _check_arena(name: str, keys: torch.Tensor,
+                 vals: Optional[torch.Tensor]) -> torch.device:
+    dev = keys.device
+    _check(name, keys, dev)
+    if keys.dim() != 2 or keys.shape[1] != LANES:
+        raise ValueError(f"{name}: expected (rows, {LANES}), got "
+                         f"{tuple(keys.shape)}")
+    if vals is not None:
+        _check(f"{name} vals", vals, dev)
+        if vals.shape != keys.shape:
+            raise ValueError(f"{name}: vals {tuple(vals.shape)} != keys "
+                             f"{tuple(keys.shape)}")
+    return dev
+
+
+def _tables(dev: torch.device, **tables) -> None:
+    """Check a call's tables: int32, contiguous, all on ``dev`` or all
+    on the CPU."""
+    where = next(iter(tables.values())).device
+    if where.type != "cpu":
+        where = dev
+    for name, t in tables.items():
+        _check(name, t, where)
+
+
+def _on(dev: torch.device, *tables: torch.Tensor):
+    return tuple(t.to(dev, non_blocking=True) for t in tables)
+
+
+def _i64(t: torch.Tensor):
+    """A table as int64 for its checks: a numpy array for a table on the
+    host, a tensor for one on the card."""
+    return t.numpy().astype(np.int64) if t.device.type == "cpu" \
+        else t.long()
+
+
+def _outside(start, size, limit: int):
+    """True if a span [start, start + size) with size > 0 leaves
+    [0, limit) (int64 element offsets, numpy or torch)."""
+    return ((size > 0) & ((start < 0) | (start + size > limit))).any()
+
+
+def _refuse(name: str, *checks) -> None:
+    """Raise ValueError with the message of the first (message, flag)
+    whose flag is true; flags on the card are read at once."""
+    flags = [flag for _, flag in checks]
+    if torch.is_tensor(flags[0]):
+        flags = torch.stack(flags).tolist()
+    for (msg, _), bad in zip(checks, flags):
+        if bad:
+            raise ValueError(f"{name}: {msg}")
+
+
+def _planes(keys, vals):
+    return (keys,) if vals is None else (keys, vals)
+
+
+def _vp(vals):
+    """The value plane's pointer, NULL when keys sort alone."""
+    return ctypes.c_void_p(0) if vals is None else _p(vals)
+
+
+# ----------------------------------------------------- plain versions
+
+def _sort_masked(k, v, live):
+    """Blocks (nb, m) with the elements at or past ``live`` (nb,) taken as
+    SENT, sorted by (key, val)."""
+    mask = torch.arange(k.shape[1], device=k.device)[None, :] \
+        < live[:, None]
+    blocks = (k.shape[0], -1, LANES)
+    k = torch.where(mask, k, SENT).view(blocks)
+    v = None if v is None else torch.where(mask, v, SENT).view(blocks)
+    k, v = bitonic_sort(k, v)
+    return k.view(k.shape[0], -1), (None if v is None
+                                    else v.view(v.shape[0], -1))
+
+
+def tile_sort_ref(keys, vals, bounds, data_elems, tile_rows):
+    bounds, data_elems = _on(keys.device, bounds, data_elems)
+    ntiles = keys.shape[0] // tile_rows
+    te = tile_rows * LANES
+    k, v = _sort_masked(keys.view(ntiles, te),
+                        None if vals is None else vals.view(ntiles, te),
+                        data_elems.long())
+    keys.view(ntiles, te).copy_(k)
+    if vals is not None:
+        vals.view(ntiles, te).copy_(v)
+    cnt = torch.searchsorted(k, bounds.contiguous(), right=True)
+    return keys, vals, cnt.to(torch.int32)
+
+
+def distribute_ref(keys, vals, slot_rows, run_starts, run_lens, out_rows,
+                   tile_rows, chr_rows=8):
+    ntiles, r = slot_rows.shape
+    dev = keys.device
+    slot_rows, run_starts, run_lens = _on(dev, slot_rows, run_starts,
+                                          run_lens)
+    ln = run_lens.reshape(-1).long()
+    live = ln > 0
+    ln = ln[live]
+    padded = (ln + LANES - 1) // LANES * LANES
+    tile = torch.arange(ntiles, device=dev).repeat_interleave(r)[live]
+    src0 = tile * (tile_rows * LANES) + run_starts.reshape(-1).long()[live]
+    dst0 = slot_rows.reshape(-1).long()[live] * LANES
+    pos = _spans(dst0, padded)
+    e = pos - torch.repeat_interleave(dst0, padded)
+    ok = e < torch.repeat_interleave(ln, padded)
+    idx = torch.where(ok, torch.repeat_interleave(src0, padded) + e, 0)
+    outs = []
+    for x in _planes(keys, vals):
+        out = torch.empty(out_rows * LANES, dtype=torch.int32, device=dev)
+        out[pos] = torch.where(ok, x.reshape(-1)[idx], SENT)
+        outs.append(out.view(out_rows, LANES))
+    return outs[0], (outs[1] if vals is not None else None)
+
+
+def ragged_sort_ref(keys, vals, starts_row, pad_elems, class_rows):
+    starts_row, pad_elems = _on(keys.device, starts_row, pad_elems)
+    pads = pad_elems.long()
+    live = pads > 0                     # pad 0: the grid's dummy buckets
+    if not bool(live.any()):
+        return keys, vals
+    m = class_rows * LANES
+    idx = starts_row.long()[live][:, None] * LANES \
+        + torch.arange(m, device=keys.device)[None, :]
+    v = None if vals is None else vals.reshape(-1)[idx]
+    k, v = _sort_masked(keys.reshape(-1)[idx], v, pads[live])
+    keys.view(-1)[idx] = k
+    if vals is not None:
+        vals.view(-1)[idx] = v
+    return keys, vals
+
+
+def compact_ref(keys, vals, starts_row, lens, out_rows, chr_rows=8):
+    starts_row, lens = _on(keys.device, starts_row, lens)
+    ln = lens.long()
+    pos = _spans(torch.cumsum(ln, 0) - ln, ln)
+    idx = _spans(starts_row.long() * LANES, ln)
+    outs = []
+    for x in _planes(keys, vals):
+        out = torch.empty(out_rows * LANES, dtype=torch.int32,
+                          device=keys.device)
+        out[pos] = x.reshape(-1)[idx]
+        outs.append(out.view(out_rows, LANES))
+    return outs[0], (outs[1] if vals is not None else None)
+
+
+def defined_elems(name: str, a: dict, numel: int) -> torch.Tensor:
+    """Bool mask over the flat output planes of one call of kernel
+    ``name`` (its arguments ``a`` by name) that is True where the output
+    is defined: everything after ``tile_sort``; each stored run's rows
+    after ``distribute``; each live bucket after ``ragged_sort``; the
+    first sum(lens) elements after ``compact``."""
+    dev = a["keys"].device
+    a = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in a.items()}
+    if name == "tile_sort":
+        return torch.ones(numel, dtype=torch.bool, device=dev)
+    if name == "compact":
+        return torch.arange(numel, device=dev) < a["lens"].long().sum()
+    if name == "distribute":
+        ln = a["run_lens"].reshape(-1).long()
+        live = ln > 0
+        start = a["slot_rows"].reshape(-1).long()[live] * LANES
+        size = (ln[live] + LANES - 1) // LANES * LANES
+    else:
+        live = a["pad_elems"].long() > 0
+        start = a["starts_row"].long()[live] * LANES
+        size = torch.full_like(start, a["class_rows"] * LANES)
+    mask = torch.zeros(numel, dtype=torch.bool, device=dev)
+    mask[_spans(start, size)] = True
+    return mask
+
+
+# ---------------------------------------------------------- kernels
+
+def tile_sort(keys: torch.Tensor, vals: Optional[torch.Tensor],
+              bounds: torch.Tensor, data_elems: torch.Tensor,
+              tile_rows: int
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """Sort every (tile_rows, 128) tile of ``keys`` (by (key, val) when
+    ``vals`` rides along) in place, the elements at or past
+    ``data_elems[t]`` taken as SENT; count each tile's range bounds.
+
+    bounds: (ntiles, R) int32 biased inclusive upper bounds.  Returns
+    (keys, vals, cnt) with cnt[t, d] the number of elements of sorted tile
+    t (SENT included) that are <= bounds[t, d]; the engine overrides
+    column R-1 with its exact valid count.
+
+    Replaces ``pallas_kernels.py:59-170`` (``_tile_sort_exe``).  The TPU
+    sorts a tile in VMEM with ``bitonic.bitonic_sort`` and counts each
+    bound with a full-tile reduction (R x tile compares); the port sorts
+    with the same order and counts by an upper-bound search in the sorted
+    tile (R x log2(tile) reads).  On the H100 a tile of 2^15 pairs (256
+    KiB) does not fit a block's shared memory, so the sort is bound by
+    its passes over the tile; the count costs little.  Design: the
+    bitonic network of ``ragged_sort`` with every tile a region; a last
+    kernel gives each (tile, bound) a thread for its search.
+    """
+    dev = _check_arena("tile_sort", keys, vals)
+    _tables(dev, bounds=bounds, data_elems=data_elems)
+    if keys.shape[0] % tile_rows:
+        raise ValueError(f"tile_sort: {keys.shape[0]} rows is not a "
+                         f"multiple of tile_rows={tile_rows}")
+    ntiles = keys.shape[0] // tile_rows
+    if bounds.dim() != 2 or bounds.shape[0] != ntiles \
+            or data_elems.numel() != ntiles:
+        raise ValueError(f"tile_sort: bounds {tuple(bounds.shape)} and "
+                         f"data_elems {tuple(data_elems.shape)} for "
+                         f"{ntiles} tiles")
+    if dev.type == "cpu":
+        return tile_sort_ref(keys, vals, bounds, data_elems, tile_rows)
+    r = bounds.shape[1]
+    cnt = torch.empty((ntiles, r), dtype=torch.int32, device=dev)
+    bounds, data_elems = _on(dev, bounds, data_elems)
+    if ntiles:
+        _launch("tile_sort", "kv1_tile_sort", dev, _p(keys), _vp(vals),
+                _p(bounds), _p(data_elems), _p(cnt), ntiles,
+                tile_rows * LANES, r, len(_planes(keys, vals)))
+    return keys, vals, cnt
+
+
+def distribute(keys: torch.Tensor, vals: Optional[torch.Tensor],
+               slot_rows: torch.Tensor, run_starts: torch.Tensor,
+               run_lens: torch.Tensor, out_rows: int, tile_rows: int,
+               chr_rows: int = 8) -> Pair:
+    """Copy every (tile, range) run to its row-aligned slot of a new
+    (out_rows, 128) arena.
+
+    Run (t, d) is the ``run_lens[t, d]`` elements at element
+    ``run_starts[t, d]`` of tile t; it lands at row ``slot_rows[t, d]``,
+    and the lanes after it in its last row are SENT.  Rows that no run
+    stores are uninitialised.  ``chr_rows`` is the reference's DMA chunk
+    and is unused.
+
+    Replaces ``pallas_kernels.py:186-360`` (``_distribute_kernel``).  The
+    TPU writes each run in whole ``chr_rows`` chunks masked to SENT, so a
+    run overshoots into the next tile's slot rows, which is right only
+    because its grid runs tiles in order; here every store is
+    element-exact (the run, then SENT to the end of its last row) and
+    64-bit addressed, so runs may land in any order.  On the H100 it is a
+    copy, bound by reading each run and writing its rows once.  Design:
+    one warp per run.
+    """
+    dev = _check_arena("distribute", keys, vals)
+    _tables(dev, slot_rows=slot_rows, run_starts=run_starts,
+            run_lens=run_lens)
+    ntiles, r = slot_rows.shape
+    if 3 * r > TABLE_ENTRIES:
+        raise ValueError("num_ranges too large for table")
+    if run_starts.shape != slot_rows.shape \
+            or run_lens.shape != slot_rows.shape \
+            or ntiles * tile_rows != keys.shape[0]:
+        raise ValueError(f"distribute: tables {tuple(slot_rows.shape)} do "
+                         f"not match {keys.shape[0]} rows of "
+                         f"{tile_rows}-row tiles")
+    ln = _i64(run_lens)
+    _refuse("distribute",
+            ("a run lies outside its tile",
+             _outside(_i64(run_starts), ln, tile_rows * LANES)),
+            ("a slot lies outside the output arena",
+             _outside(_i64(slot_rows) * LANES,
+                      (ln + LANES - 1) // LANES * LANES, out_rows * LANES)))
+    if dev.type == "cpu":
+        return distribute_ref(keys, vals, slot_rows, run_starts, run_lens,
+                              out_rows, tile_rows, chr_rows)
+    outs = [torch.empty((out_rows, LANES), dtype=torch.int32, device=dev)
+            for _ in _planes(keys, vals)]
+    ov = outs[1] if vals is not None else None
+    slot_rows, run_starts, run_lens = _on(dev, slot_rows, run_starts,
+                                          run_lens)
+    if ntiles * r:
+        _launch("distribute", "kv1_distribute", dev, _p(keys), _vp(vals),
+                keys.numel(), _p(slot_rows), _p(run_starts), _p(run_lens),
+                _p(outs[0]), _vp(ov), outs[0].numel(), ntiles * r, r,
+                tile_rows * LANES, len(outs))
+    return outs[0], ov
+
+
+def ragged_sort(keys: torch.Tensor, vals: Optional[torch.Tensor],
+                starts_row: torch.Tensor, pad_elems: torch.Tensor,
+                class_rows: int) -> Pair:
+    """Sort ``nb`` buckets of ``class_rows`` rows in place, bucket b at
+    row ``starts_row[b]``, its elements at or past ``pad_elems[b]`` taken
+    as SENT.  Buckets with ``pad_elems[b] == 0`` are left as they are:
+    the engine pads the grid to a power of two with such dummies, all
+    pointing at one slack region.
+
+    Replaces ``pallas_kernels.py:365-471`` (``_ragged_sort_kernel``), a
+    whole bucket in VMEM.  On the H100 a class of up to 2048 rows (2^18
+    keys, 1 MiB a plane) does not fit a block's shared memory, and
+    ``sort_vmem`` puts its whole input in one bucket, so the sort is
+    bound by its passes over the buckets.  Design: a bitonic network in
+    launches over all buckets of the call at once: one block per
+    shared-memory tile (16K keys or 8K pairs, 64 KiB) sorts it; then, for
+    every merge size above the tile, each step with a partner distance of
+    a tile or more is one launch over all pairs in device memory, and the
+    shorter steps run per tile in shared memory.  Any number of blocks
+    shares a bucket, so one large bucket fills the card.  Dummy buckets
+    are skipped by every kernel (concurrent blocks on one region would
+    race).
+    """
+    dev = _check_arena("ragged_sort", keys, vals)
+    _tables(dev, starts_row=starts_row, pad_elems=pad_elems)
+    if starts_row.numel() != pad_elems.numel():
+        raise ValueError(f"ragged_sort: {starts_row.numel()} starts, "
+                         f"{pad_elems.numel()} pads")
+    _refuse("ragged_sort",
+            ("a live bucket lies outside the arena",
+             _outside(_i64(starts_row) * LANES,
+                      (_i64(pad_elems) > 0) * (class_rows * LANES),
+                      keys.numel())))
+    if dev.type == "cpu":
+        return ragged_sort_ref(keys, vals, starts_row, pad_elems,
+                               class_rows)
+    starts_row, pad_elems = _on(dev, starts_row, pad_elems)
+    if starts_row.numel():
+        _launch("ragged_sort", "kv1_ragged_sort", dev, _p(keys), _vp(vals),
+                keys.numel(), _p(starts_row), _p(pad_elems),
+                starts_row.numel(), class_rows * LANES,
+                len(_planes(keys, vals)))
+    return keys, vals
+
+
+def compact(keys: torch.Tensor, vals: Optional[torch.Tensor],
+            starts_row: torch.Tensor, lens: torch.Tensor, out_rows: int,
+            chr_rows: int = 8) -> Pair:
+    """Concatenate the first ``lens[s]`` elements at row ``starts_row[s]``
+    of every segment s, in segment order, into a new (out_rows, 128)
+    arena; elements past their total are uninitialised.  ``chr_rows`` is
+    the reference's DMA chunk and is unused.
+
+    Replaces ``pallas_kernels.py:476-663`` (``_compact_kernel``).  The TPU
+    writes whole rows, so it shifts each segment by its lane phase and
+    carries the partial row across grid steps, which must run in order;
+    with element-exact stores each segment is copied to its prefix offset
+    independently.  On the H100 it is a copy, bound by one read and one
+    write of each element.  Design: one block per segment; the offsets
+    are an exclusive prefix sum of ``lens`` made on the device.
+    """
+    dev = _check_arena("compact", keys, vals)
+    _tables(dev, starts_row=starts_row, lens=lens)
+    if starts_row.numel() != lens.numel():
+        raise ValueError(f"compact: {starts_row.numel()} starts, "
+                         f"{lens.numel()} lengths")
+    ln = _i64(lens)
+    _refuse("compact",
+            ("negative lengths, or lengths past the output's rows",
+             (ln < 0).any() | (ln.sum() > out_rows * LANES)),
+            ("a segment lies outside the arena",
+             _outside(_i64(starts_row) * LANES, ln, keys.numel())))
+    if dev.type == "cpu":
+        return compact_ref(keys, vals, starts_row, lens, out_rows, chr_rows)
+    outs = [torch.empty((out_rows, LANES), dtype=torch.int32, device=dev)
+            for _ in _planes(keys, vals)]
+    ov = outs[1] if vals is not None else None
+    if lens.numel():
+        lt = lens.long()
+        offs, starts_row, lens = _on(dev, torch.cumsum(lt, 0) - lt,
+                                     starts_row, lens)
+        _launch("compact", "kv1_compact", dev, _p(keys), _vp(vals),
+                keys.numel(), _p(starts_row), _p(lens), _p(offs),
+                lens.numel(), _p(outs[0]), _vp(ov), outs[0].numel(),
+                len(outs))
+    return outs[0], ov

@@ -318,3 +318,57 @@ def test_check_payload_shards_and_errors():
     assert rt.check(u) == int(EDGE_U64.sum(dtype=np.uint64))
     with pytest.raises(TypeError):
         rt.sort(t, torch.zeros(500, dtype=torch.float32))
+
+
+V1 = SortConfig(engine="pallas", tile_elems=1024, range_bits=3)
+
+
+def test_engine_pallas_routing(monkeypatch):
+    """engine="pallas" as the reference routes it: uint32 keys (rids of
+    at most 32 bits, returned in their own dtype) through msd_sort,
+    uint64 keys without rids through msd_sort_u64, every other key type
+    to torch.sort; 64-bit rids with uint32 keys raise ValueError naming
+    v4 (the reference would keep their low words, ROADMAP.md C11)."""
+    from inplacemsdradixsort_tpu_torch.ops import pallas_engine as tpe
+    ran = []
+    for fn in ("msd_sort", "msd_sort_u64"):
+        f = getattr(tpe, fn)
+        monkeypatch.setattr(tpe, fn, lambda *a, _f=f, _n=fn, **k: (
+            ran.append(_n), _f(*a, **k))[1])
+    for kind in ("u32", "u32+u32", "u32+i16", "u32+u8", "u64", "i32", "f32",
+                 "u64+u32", "u32+u64"):
+        ran.clear()
+        _check_pallas_route(kind, ran)
+
+
+def _check_pallas_route(kind, ran):
+    rng = np.random.default_rng(12)
+    n = 3000
+    key_t, _, rid_t = kind.partition("+")
+    keys = {"u32": rng.integers(0, 50, n, dtype=np.uint32),
+            "u64": rng.choice(np.array([5, 2**64 - 1, 2**40], np.uint64), n)
+            | rng.integers(0, 4, n, dtype=np.uint64),
+            "i32": rng.integers(-2**31, 2**31, n).astype(np.int32),
+            "f32": rng.standard_normal(n).astype(np.float32)}[key_t]
+    rids = None
+    if rid_t:
+        dt = {"u32": np.uint32, "i16": np.int16, "u8": np.uint8,
+              "u64": np.uint64}[rid_t]
+        rids = rng.integers(0, min(np.iinfo(dt).max, 2**62), n,
+                            dtype=np.int64).astype(dt)
+    if kind == "u32+u64":
+        with pytest.raises(ValueError, match="'v4'"):
+            rt.sort(_t(keys), _t(rids), config=V1)
+        assert not ran, kind
+        return
+    res = rt.sort(_t(keys), None if rids is None else _t(rids), config=V1)
+    want_ran = {"u32": ["msd_sort"], "u64": ["msd_sort_u64"]}.get(
+        key_t if kind != "u64+u32" else "", [])
+    assert ran[:1] == want_ran, (kind, ran)
+    # ties of equal keys in rid order (rids here are non-negative)
+    order = (np.argsort(keys, kind="stable") if rids is None
+             else np.lexsort((rids, keys)))
+    np.testing.assert_array_equal(res.keys.numpy(), keys[order])
+    if rids is not None:
+        assert res.rids.dtype == _t(rids).dtype
+        np.testing.assert_array_equal(res.rids.numpy(), rids[order])

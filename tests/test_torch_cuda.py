@@ -6,6 +6,8 @@ runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,8 @@ from inplacemsdradixsort_tpu_torch import SortConfig, sort, sort_with_indices
 from inplacemsdradixsort_tpu_torch.ops import deep, engine_v4, engine_v5
 from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as kv4
 from inplacemsdradixsort_tpu_torch.ops import kernels_v5 as kv5
+from inplacemsdradixsort_tpu_torch.ops import pallas_engine
+from inplacemsdradixsort_tpu_torch.ops import pallas_kernels as pk
 
 pytestmark = pytest.mark.cuda
 
@@ -413,3 +417,158 @@ def test_v5_default_geometry_on_card(cuda, kind):
         np.testing.assert_array_equal(res.rids.cpu().numpy(), rid[order])
     assert engine_v4.FALLBACK_STATS == dict.fromkeys(
         engine_v4.FALLBACK_STATS, 0), engine_v4.FALLBACK_STATS
+
+
+# ------------------------------------------------------------------ v1
+
+V1_TINY = SortConfig(tile_elems=1024, range_bits=3, engine="pallas")
+V1_INPLACE = {"tile_sort", "ragged_sort"}
+
+
+def _v1_replay(fn):
+    """Run ``fn`` with every v1 kernel wrapper checked: each call runs
+    the kernel, then its plain version on a copy of the same CUDA inputs
+    taken before the call; the defined elements of every output plane
+    (and tile_sort's counts) must be equal.  Returns the kernels called."""
+    import inspect
+    wrappers = {k: getattr(pk, k) for k in pk.LAUNCHES}
+    seen = set()
+
+    def checked(name):
+        kern, ref = wrappers[name], getattr(pk, name + "_ref")
+
+        def run(*args, **kw):
+            a = inspect.signature(kern).bind(*args, **kw)
+            a.apply_defaults()
+            a = dict(a.arguments)
+            before = {k: _clone(v) for k, v in a.items()}
+            out = kern(*args, **kw)
+            want = ref(**before)
+            mask = pk.defined_elems(name, a, out[0].numel())
+            for g, w in zip(out[:2], want[:2]):
+                if g is not None:
+                    assert torch.equal(g.reshape(-1)[mask],
+                                       w.reshape(-1)[mask]), name
+            if name == "tile_sort":
+                assert torch.equal(out[2], want[2]), "tile_sort counts"
+            seen.add(name)
+            return out
+        return run
+    for k in wrappers:
+        setattr(pk, k, checked(k))
+    try:
+        fn()
+    finally:
+        for k, f in wrappers.items():
+            setattr(pk, k, f)
+    return seen
+
+
+def test_v1_kernels_match_plain_versions(cuda):
+    """Every v1 kernel call of a sort at the reference tests' tiny
+    geometry and at the default one equals its plain version on the same
+    CUDA inputs; the sort equals numpy."""
+    for cfg in (V1_TINY, SortConfig(engine="pallas")):
+        for kind in ("uniform", "dup8", "maxheavy", "pairs"):
+            _check_v1_sort(cuda, kind, cfg)
+
+
+def _check_v1_sort(cuda, kind, cfg):
+    n = 30_000 if cfg is V1_TINY else (1 << 21) + 77
+    x = _keys(n, 21, "dup8" if kind == "dup8" else
+              "maxheavy" if kind == "maxheavy" else "uniform")
+    k = torch.from_numpy(x).to(cuda)
+    rid = (torch.arange(n, dtype=torch.int32, device=cuda)
+           if kind == "pairs" else None)
+    box = {}
+    seen = _v1_replay(lambda: box.update(
+        r=pallas_engine.msd_sort(k, rid, cfg)))
+    # dup8 at the default geometry: eight all-equal buckets above the
+    # largest class end 'done', so nothing reaches ragged_sort
+    done = kind == "dup8" and cfg is not V1_TINY
+    assert seen == set(pk.LAUNCHES) - ({"ragged_sort"} if done else set()), \
+        (kind, seen)
+    order = np.argsort(x, kind="stable")
+    np.testing.assert_array_equal(box["r"][0].cpu().numpy(), x[order])
+    if rid is not None:
+        np.testing.assert_array_equal(
+            box["r"][1].cpu().numpy().astype(np.int64), order)
+
+
+def test_v1_ragged_edges_and_sort_vmem(cuda):
+    """ragged_sort leaves pad-0 dummy buckets alone (here all pointing at
+    one region that holds data), and sorts classes above the shared tile
+    and of a size that is no power of two; sort_vmem is one ragged_sort
+    launch over the whole input.  Tables that place a live bucket, a run
+    or a segment outside its arena raise ValueError on the card too,
+    whether the tables lie on the card or on the host."""
+    rng = np.random.default_rng(5)
+    k = torch.zeros((16, LANES), dtype=torch.int32, device=cuda)
+    t = functools.partial(torch.tensor, dtype=torch.int32, device=cuda)
+    for dev in (cuda, "cpu"):      # tables on the card or on the host
+        with pytest.raises(ValueError, match="bucket"):
+            pk.ragged_sort(k, None, t([0, 12], device=dev),
+                           t([5, 1], device=dev), 8)
+    with pytest.raises(ValueError, match="run"):
+        pk.distribute(k, None, t([[0]]), t([[2000]]), t([[100]]), 16, 16)
+    with pytest.raises(ValueError, match="segment"):
+        pk.compact(k, None, t([15]), t([200]), 8)
+    for class_rows, pairs in [(2048, False), (1024, True), (96, False),
+                              (384, True)]:
+        rows = 6 * class_rows
+        kp = [torch.from_numpy(rng.integers(-2**31, 2**31, rows * LANES)
+                               .astype(np.int32)).view(rows, LANES).to(cuda)
+              for _ in range(2 if pairs else 1)]
+        starts = torch.tensor([0, 2 * class_rows, 4 * class_rows,
+                               4 * class_rows], dtype=torch.int32,
+                              device=cuda)
+        pads = torch.tensor([class_rows * LANES, 1000, 0, 0],
+                            dtype=torch.int32, device=cuda)
+        vals = kp[1] if pairs else None
+        want = pk.ragged_sort_ref(_clone(kp[0]), _clone(vals), starts, pads,
+                                  class_rows)
+        got = pk.ragged_sort(_clone(kp[0]), _clone(vals), starts, pads,
+                             class_rows)
+        for g, w, x in zip(got, want, kp):
+            assert torch.equal(g, w)        # dummies' region untouched too
+            assert torch.equal(g[4 * class_rows:], x[4 * class_rows:])
+    for logn in (10, 15, 20):
+        x = _keys((1 << logn) - 3, logn)
+        pk.reset_launches()
+        got = pallas_engine.sort_vmem(torch.from_numpy(x).to(cuda))
+        assert pk.LAUNCHES["ragged_sort"] == 1
+        np.testing.assert_array_equal(got.cpu().numpy(), np.sort(x))
+
+
+def test_api_pallas_on_card(cuda):
+    """api.sort(engine="pallas") on CUDA tensors runs the v1 kernels (the
+    counters move) and equals numpy; rids come back in their dtype."""
+    for kind in ("u32", "pairs_i16", "u64", "u64_max"):
+        _check_api_pallas(cuda, kind)
+
+
+def _check_api_pallas(cuda, kind):
+    rng = np.random.default_rng(8)
+    n = (1 << 20) + 5
+    if kind.startswith("u64"):
+        hi = rng.choice(np.array([3, 9, 2**32 - 1], np.uint64), n)
+        x = (hi << np.uint64(32)) | rng.integers(0, 2**32, n,
+                                                 dtype=np.uint64)
+        if kind == "u64_max":
+            x[rng.random(n) < 0.1] = np.uint64(2**64 - 1)
+    else:   # many ties, every key's bucket below the largest class
+        x = rng.integers(0, 4096, n, dtype=np.uint32)
+    rid = (rng.integers(-2**15, 2**15, n).astype(np.int16)
+           if kind == "pairs_i16" else None)
+    pk.reset_launches()
+    res = sort(torch.from_numpy(x).to(cuda),
+               None if rid is None else torch.from_numpy(rid).to(cuda),
+               config=SortConfig(engine="pallas"))
+    assert pk.LAUNCHES["tile_sort"] and pk.LAUNCHES["ragged_sort"], \
+        (kind, pk.LAUNCHES)
+    order = (np.argsort(x, kind="stable") if rid is None
+             else np.lexsort((rid.astype(np.uint32), x)))
+    np.testing.assert_array_equal(res.keys.cpu().numpy(), x[order])
+    if rid is not None:
+        assert res.rids.dtype == torch.int16
+        np.testing.assert_array_equal(res.rids.cpu().numpy(), rid[order])

@@ -340,6 +340,9 @@ def test_import_leaves_jax_out():
             "inplacemsdradixsort_tpu_torch.ops.engine_v4, "
             "inplacemsdradixsort_tpu_torch.ops.engine_v5, "
             "inplacemsdradixsort_tpu_torch.ops.kernels_v5, "
+            "inplacemsdradixsort_tpu_torch.ops.pallas_engine, "
+            "inplacemsdradixsort_tpu_torch.ops.pallas_kernels, "
+            "inplacemsdradixsort_tpu_torch.ops.bitonic, "
             "inplacemsdradixsort_tpu_torch.ops.deep, "
             "inplacemsdradixsort_tpu_torch.ops.keycodec, "
             "inplacemsdradixsort_tpu_torch.utils.checking, "
