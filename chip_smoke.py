@@ -35,20 +35,30 @@ lexicographic by (key, rid)):
   u32 rid = arange) pairs at 2^28, 2^24 keys with 30% 0xFFFFFFFF and
   2^26 u64 keys with 8 distinct high words (done buckets, the low words
   finished per bucket), each with its phase split; and ``sort_vmem`` at
-  2^15 and 2^20 (one ``ragged_sort`` launch over the whole input).
+  2^15 and 2^20 (one ``ragged_sort`` launch over the whole input);
+- the v3 engine (``engine="v3"`` at its default config: 1024-row tiles,
+  rmax and cap_rows from the plan): uint32 keys at 2^28 (cap_rows 2048,
+  rmax 48, 2,149 L1 tiles), (u32 key, u32 rid = arange) pairs at 2^28,
+  uint64 keys at 2^27 through (hi, lo), and 2^24 keys with 30%
+  0xFFFFFFFF (value-fill buckets, counted), each with its phase split;
+  the uniform inputs must take exactly two ``partition_level`` launches
+  and one ``terminal_sort_write`` launch (no retry, no fallback).
 
 The first sort of every input is checked launch by launch: each call of
 ``hist_level``, ``route_level``, ``terminal_write``, ``splice_runs``,
-``seqroute_level``, ``block_permute``, ``tile_sort``, ``distribute``,
-``ragged_sort`` and ``compact`` in it (at the shapes that path gives
-them) is held against the kernel's plain PyTorch version on the same
-CUDA tensors, exactly (route arenas through ``canonical_runs``;
-seqroute's W region by region through ``canonical_regions``, since the
-order inside a stream is not part of its contract; the v1 arenas on the
-rows each call defines; W and the v1 arenas are copied before the
-in-place launches).  The plain version replays the call in chunks of at
-most ``CHECK_CHUNK`` elements (tiles, buckets, runs, segments or
-cycles), so the check fits beside the sort at every size.  Each call's
+``seqroute_level``, ``block_permute``, ``partition_level``,
+``terminal_sort_write``, ``tile_sort``, ``distribute``, ``ragged_sort``
+and ``compact`` in it (at the shapes that path gives them) is held
+against the kernel's plain PyTorch version on the same CUDA tensors,
+exactly (route arenas through ``canonical_runs``; seqroute's W region by
+region through ``canonical_regions`` and the v3 arenas child by child
+through ``canonical_children``, since the order inside a stream or a
+child is not part of their contract; the v1 arenas on the rows each call
+defines; W and the v1 arenas are copied before the in-place launches).
+The plain version replays the call in chunks of at most ``CHECK_CHUNK``
+elements (tiles, buckets, runs, segments or cycles; ``partition_level``
+with its cursors carried from chunk to chunk), so the check fits beside
+the sort at every size.  Each call's
 kernel time (CUDA events around the wrapper), plain time (host clock,
 synchronised) and bound (the bytes it must move, each input element read
 once and each output written once, at the H100 SXM's 3.35 TB/s) are
@@ -59,14 +69,17 @@ equal to the kernel's (the library time; the port never calls it):
 the pre-launch copy), ``distribute`` and ``compact`` (gather indices
 built outside the timed call); ``torch.sort`` for keys-only
 ``tile_sort`` launches (by row of tiles) and single-bucket
-``ragged_sort`` launches (``sort_vmem``).  Where the library call
+``ragged_sort`` launches (``sort_vmem``) and keys-only
+``terminal_sort_write`` launches (the buckets gathered, outside the
+timed call, into rows of cap_rows*128 with SENT after each bucket, then
+sorted by row).  Where the library call
 covers only some launches, the JSON record gives their count
 (``library_calls``) and the kernel's time on them
 (``library_kernel_ms``) beside ``library_ms``.  Then: the port's peak memory
 in a second sort, its time against what a user would otherwise run
 (``torch.sort`` on the keys; stable, plus a gather of the rids), and
-each kernel's time inside one 2^28 sort, keys only and pairs (v4 and
-v1), and one 2^30 v5 sort of pairs.
+each kernel's time inside one 2^28 sort, keys only and pairs (v4, v1
+and v3), and one 2^30 v5 sort of pairs.
 
 Per-call check lines go to ``chiprun_out/chip_smoke_calls.log``; stdout
 has one line per (input, kernel, plane count).  Any failure raises
@@ -122,6 +135,12 @@ V1_CASES = [("v1 keys 2^28", 28, "u32", None, 0.0, 2),
             ("v1 maxheavy 2^24", 24, "u32", None, 0.3, 1),
             ("v1 u64 few-hi 2^26", 26, "few_hi", None, 0.0, 1)]
 V1_VMEM_LOGN = [15, 20]
+# v3 (engine="v3", default config): (label, log2 n, key kind, rid kind,
+# share of 0xFFFFFFFF, timed rounds)
+V3_CASES = [("v3 keys 2^28", 28, "u32", None, 0.0, 2),
+            ("v3 pairs u32+u32(arange) 2^28", 28, "u32", "arange", 0.0, 1),
+            ("v3 u64 2^27", 27, "u64", None, 0.0, 1),
+            ("v3 maxheavy 2^24", 24, "u32", None, 0.3, 1)]
 KERNELS = {
     # name: (wrapper module, source, the TPU kernel's pallas_call)
     "hist_level": ("kv4", "inplacemsdradixsort_tpu_torch/csrc/kernels_v4.cu",
@@ -141,6 +160,14 @@ KERNELS = {
     "block_permute": ("kv5",
                       "inplacemsdradixsort_tpu_torch/csrc/kernels_v5.cu",
                       "inplacemsdradixsort_tpu/ops/kernels_v5.py:501"),
+    "partition_level": ("kv3",
+                        "inplacemsdradixsort_tpu_torch/csrc/kernels_v3.cu",
+                        "inplacemsdradixsort_tpu/ops/kernels_v3.py:307"),
+    # launches the v4 terminal kernel (ops/kernels_v3.py says why)
+    "terminal_sort_write": ("kv3",
+                            "inplacemsdradixsort_tpu_torch/csrc/"
+                            "kernels_v4.cu",
+                            "inplacemsdradixsort_tpu/ops/kernels_v3.py:577"),
     "tile_sort": ("pk",
                   "inplacemsdradixsort_tpu_torch/csrc/pallas_kernels.cu",
                   "inplacemsdradixsort_tpu/ops/pallas_kernels.py:115"),
@@ -624,6 +651,117 @@ def check_compact(m, a, out, _):
     return err, ms
 
 
+def check_partition(m, a, out, _):
+    """The plain version replays the call tile group by tile group into
+    one fresh arena per plane, its cursors (rows claimed per child)
+    carried from group to group; counts, pads and the flag must be
+    equal, and the arenas child group by child group through
+    ``canonical_children`` (every child but an overflowing one, whose
+    kept tuples are not defined)."""
+    tiles = a["tile_tbl"]
+    nt = tiles.shape[0]
+    per = max(1, CHECK_CHUNK // (a["pitch"] * LANES))
+    planes = tuple(p for p in out[:2] if p is not None)
+    want = tuple(torch.empty_like(p) for p in planes)
+    nchild = a["dst_start"].numel()
+    claimed = torch.zeros(nchild, dtype=torch.long, device=tiles.device)
+    real = torch.zeros_like(out[3])
+    pads = torch.zeros_like(out[4])
+    over = torch.zeros_like(out[5])
+    occ = torch.zeros_like(out[2])
+    keys = ("src", "vsrc", "tile_tbl", "child_base", "bounds", "dst_start",
+            "dst_cap", "dst_rows", "pitch", "rmax", "parent_fill",
+            "sink_base", "sink_cnt", "padsrc", "nsinks", "pad_stride",
+            "bias_input")
+    ms = 0
+    for t0 in range(0, nt, per):
+        args = [a[k] for k in keys]
+        args[2] = tiles[t0:t0 + per]
+        r, t = _plain(lambda: m.kv3.partition_level_ref(
+            *args, out=want, t0=t0, claimed=claimed))
+        ms += t
+        occ, real, pads, over = r[2], real + r[3], pads + r[4], over | r[5]
+    err = _err(out[2:], (occ, real, pads, over))
+    # which tuples an overflowing child keeps is not defined
+    fits = claimed <= a["dst_cap"]
+    gid, ngroups = _groups(torch.where(fits, out[2].long() * LANES, 0))
+    for k in range(ngroups):
+        sel = (gid == k) & fits
+        st, oc = a["dst_start"][sel], out[2][sel]
+        err = max(err, _err(m.kv3.canonical_children(planes, st, oc),
+                            m.kv3.canonical_children(want, st, oc)))
+    return err, ms
+
+
+def _v3_written(a):
+    """(btbl as int64, elements each bucket writes): mode 0 at most
+    min(occ, cap_rows) rows, mode 1 its real count."""
+    bt = a["btbl"].long()
+    occ, real, mode = bt[:, 1], bt[:, 2].clamp(min=0), bt[:, 3]
+    return bt, torch.where(mode == 0, torch.minimum(
+        real, occ.clamp(0, a["cap_rows"]) * LANES), real)
+
+
+def check_terminal_v3(m, a, out, _):
+    """Bucket group by bucket group, the plain version writes into one
+    fresh output per plane; the elements each group's buckets write must
+    be equal."""
+    bt, eff = _v3_written(a)
+    gid, ngroups = _groups(torch.where(
+        bt[:, 3] == 0, bt[:, 1].clamp(0, a["cap_rows"]) * LANES, eff))
+    planes = tuple(p for p in out if p is not None)
+    want = tuple(torch.empty_like(p) for p in planes)
+    err = ms = 0
+    for k in range(ngroups):
+        ink = gid == k
+        btk = a["btbl"].clone()
+        btk[:, 2] = torch.where(ink, btk[:, 2], 0)
+        _, t = _plain(lambda: m.kv3.terminal_sort_write_ref(
+            a["src"], a["vsrc"], btk, a["fillval"], a["out_off"],
+            a["out_rows"], a["cap_rows"], a["unbias_output"], outs=want))
+        ms += t
+        pos = m.kv4._spans(a["out_off"].long()[ink], eff[ink])
+        err = max(err, _err(tuple(p.view(-1)[pos] for p in planes),
+                            tuple(w.view(-1)[pos] for w in want)))
+    return err, ms
+
+
+def library_terminal_v3(m, a, out, _):
+    """Keys-only launches: ``torch.sort(x, dim=1)`` of the mode-0 buckets
+    gathered (not timed) into rows of cap_rows*128 elements, SENT after
+    each bucket's min(occ, cap_rows)*128; each row's first ``written``
+    values (unbiased as the call asks, outside the timed call) must equal
+    the kernel's output at the bucket's offset.  Pairs: no one call sorts
+    by (key, val), so None."""
+    if a["vsrc"] is not None:
+        return None
+    bt, eff = _v3_written(a)
+    live = (bt[:, 3] == 0) & (eff > 0)
+    width = a["cap_rows"] * LANES
+    rows = bt[live, 0] * LANES
+    lens = bt[live, 1].clamp(0, a["cap_rows"]) * LANES
+    e = torch.arange(width, device=rows.device)
+    src = a["src"].reshape(-1)
+    ext = torch.cat([src, src.new_full((1,), m.kv4.SENT)])
+    idx = torch.where(e[None, :] < lens[:, None], rows[:, None] + e[None, :],
+                      src.numel())
+    mat = ext[idx]
+    del idx, ext
+    lib, t = _plain(torch.sort, mat, 1)
+    del mat
+    vals = lib.values
+    if a["unbias_output"]:
+        vals ^= BIAS
+    w = eff[live]
+    nb = w.numel()
+    flat = torch.arange(nb, device=w.device).repeat_interleave(w) * width \
+        + m.kv4._spans(torch.zeros_like(w), w)
+    pos = m.kv4._spans(a["out_off"].long()[live], w)
+    assert torch.equal(vals.view(-1)[flat], out[0].view(-1)[pos]), \
+        "terminal torch.sort differs"
+    return t
+
+
 def library_tile_sort(m, a, out, before):
     """Keys-only launches: ``torch.sort(keys.view(ntiles, -1), dim=1)`` of
     the pre-launch tiles, their slack masked to SENT first (not timed);
@@ -708,11 +846,14 @@ def library_compact(m, a, out, _):
 CHECKS = {"hist_level": check_hist, "route_level": check_route,
           "terminal_write": check_terminal, "splice_runs": check_splice,
           "seqroute_level": check_seqroute, "block_permute": check_permute,
+          "partition_level": check_partition,
+          "terminal_sort_write": check_terminal_v3,
           "tile_sort": check_tile_sort, "distribute": check_distribute,
           "ragged_sort": check_ragged, "compact": check_compact}
 # kernels with a one-call PyTorch equivalent (on some or all launches:
 # None where a launch has none)
 LIBRARY = {"splice_runs": library_splice, "block_permute": library_permute,
+           "terminal_sort_write": library_terminal_v3,
            "tile_sort": library_tile_sort, "distribute": library_distribute,
            "ragged_sort": library_ragged, "compact": library_compact}
 
@@ -797,6 +938,34 @@ def call_bytes_v1(name, a, out):
     return 4 * (2 * planes * int(ln.sum().item()) + 2 * ln.numel())
 
 
+def call_bytes_v3(name, a, out):
+    """``call_bytes`` of the v3 kernels, every plane: partition_level reads
+    every live element of its tiles and writes the rows each child
+    stores (occ); terminal_sort_write reads min(occ, cap_rows) rows of
+    each mode-0 bucket and writes what each bucket writes (the fill
+    buckets the key plane only); and their tables."""
+    planes = 1 if a["vsrc"] is None else 2
+    if name == "partition_level":
+        tt = a["tile_tbl"].long()
+        nel = (a["parent_fill"].long()[tt[:, 0]] - tt[:, 2]).clamp(
+            0, a["pitch"] * LANES)
+        nel = torch.minimum(nel, (a["src"].numel() - tt[:, 1] * LANES)
+                            .clamp(min=0))
+        live = int(nel.sum().item())
+        stored = int(out[2].long().sum().item()) * LANES
+        tables = sum(a[k].numel() for k in (
+            "tile_tbl", "child_base", "bounds", "dst_start", "dst_cap",
+            "parent_fill", "sink_base", "sink_cnt")) + 3 * out[2].numel()
+        return 4 * (planes * (live + stored) + tables + out[4].numel())
+    bt, eff = _v3_written(a)
+    mode0 = (bt[:, 3] == 0) & (bt[:, 2] > 0)
+    read = int((bt[:, 1].clamp(0, a["cap_rows"]) * LANES)[mode0].sum()
+               .item())
+    wrote = int(eff[mode0].sum().item())
+    fill = int(eff[bt[:, 3] != 0].sum().item())
+    return 4 * (planes * (read + wrote) + fill + 6 * bt.shape[0])
+
+
 class Checker:
     """While ``run`` drives a sort, every call of the kernel wrappers
     launches the kernel as the path asked, then replays the call on its
@@ -809,6 +978,7 @@ class Checker:
                                   library_calls=0, library_kernel_ms=0.0)
                        for name in wrappers}
         self.by_input = {}      # (input, kernel, planes) -> sums
+        self.fill_buckets = {}  # input -> v3 value-fill buckets written
 
     def _module(self, name):
         return getattr(self.mods, KERNELS[name][0])
@@ -859,9 +1029,12 @@ class Checker:
             mod = KERNELS[name][0]
             bound = (call_bytes_v5(name, a) if mod == "kv5"
                      else call_bytes_v1(name, a, out) if mod == "pk"
+                     else call_bytes_v3(name, a, out) if mod == "kv3"
                      else call_bytes(name, a)) / HBM_BYTES_PER_S * 1e3
             if mod == "pk":
                 planes = 1 if a["vals"] is None else 2
+            elif mod == "kv3":
+                planes = 1 if a["vsrc"] is None else 2
             else:
                 planes = 1 if name == "hist_level" else len(
                     a["w"] if "w" in a else a["srcs"])
@@ -872,6 +1045,18 @@ class Checker:
                 extra["rows"] = a["keys"].shape[0]
                 if name in ("ragged_sort", "compact"):
                     extra["buckets"] = a["starts_row"].numel()
+            if name == "partition_level":
+                extra["ntiles"] = a["tile_tbl"].shape[0]
+                extra["children"] = a["dst_start"].numel()
+                extra["over"] = int(out[5][0].item())
+            if name == "terminal_sort_write":
+                bt = a["btbl"]
+                extra["buckets"] = int((bt[:, 2] > 0).sum().item())
+                extra["fill_buckets"] = int(((bt[:, 3] != 0)
+                                             & (bt[:, 2] > 0)).sum().item())
+                self.fill_buckets[self.label] = \
+                    self.fill_buckets.get(self.label, 0) \
+                    + extra["fill_buckets"]
             if name == "block_permute":
                 off = a["cyc_off"].long()
                 extra = dict(cycles=off.numel() - 1,
@@ -915,8 +1100,9 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     from inplacemsdradixsort_tpu_torch import SortConfig, sort
     from inplacemsdradixsort_tpu_torch.api import check_fits, held_bytes
-    from inplacemsdradixsort_tpu_torch.ops import _build, engine_v4
+    from inplacemsdradixsort_tpu_torch.ops import _build, engine_v3, engine_v4
     from inplacemsdradixsort_tpu_torch.ops import engine_v5
+    from inplacemsdradixsort_tpu_torch.ops import kernels_v3 as kv3
     from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as kv4
     from inplacemsdradixsort_tpu_torch.ops import kernels_v5 as kv5
     from inplacemsdradixsort_tpu_torch.ops import pallas_engine
@@ -942,7 +1128,8 @@ def main():
     cfg = SortConfig()
     v5cfg = dataclasses.replace(cfg, engine="v5")
     v1cfg = dataclasses.replace(cfg, engine="pallas")
-    mods = types.SimpleNamespace(kv4=kv4, kv5=kv5, pk=pk)
+    v3cfg = dataclasses.replace(cfg, engine="v3")
+    mods = types.SimpleNamespace(kv4=kv4, kv5=kv5, pk=pk, kv3=kv3)
     wrappers = {name: getattr(getattr(mods, mod), name)
                 for name, (mod, _, _) in KERNELS.items()}
     os.makedirs(os.path.dirname(CALL_LOG), exist_ok=True)
@@ -963,6 +1150,10 @@ def main():
         sort(keys, rids, config=v1cfg)
         del keys, rids
     pallas_engine.sort_vmem(make_keys(1 << 12, 0.0, SEED - 12, dev))
+    for kk, rk in [("u32", None), ("u32", "arange"), ("u64", None)]:
+        keys, rids = make_input(1 << 20, kk, rk, SEED - 13, dev)
+        sort(keys, rids, config=v3cfg)
+        del keys, rids
     torch.cuda.synchronize()
 
     # ------------------------------------------------------ main paths
@@ -1004,13 +1195,15 @@ def main():
         print(f"main {label} one sort: {total * 1e3:.3f} ms")
 
     def counts():
-        return {**kv4.LAUNCHES, **kv5.LAUNCHES, **pk.LAUNCHES}
+        return {**kv4.LAUNCHES, **kv5.LAUNCHES, **pk.LAUNCHES,
+                **kv3.LAUNCHES}
 
     def path(label, names):
         """Open a main path: counts to 0; returns the closing check."""
         kv4.reset_launches()
         kv5.reset_launches()
         pk.reset_launches()
+        kv3.reset_launches()
         engine_v4.reset_fallback_stats()
 
         def close():
@@ -1037,7 +1230,8 @@ def main():
         """Sort on the card with every launch checked, compare with the
         torch reference (computed first and kept on the host), report
         fallbacks, then peak memory and times of unchecked sorts.
-        ``engine="v5"`` asserts that the checked sort ran v5's kernels;
+        ``engine="v5"`` asserts that the checked sort ran v5's kernels,
+        ``"v1"`` and ``"v3"`` those of that engine;
         ``also`` names another config to time and measure beside it."""
         ref = torch_reference(keys, rids)
         ref = tuple(None if t is None else t.cpu() for t in ref)
@@ -1049,6 +1243,8 @@ def main():
         stats = {k: engine_v4.FALLBACK_STATS[k] - before[k] for k in before}
         if engine == "v1":
             assert pk.LAUNCHES["tile_sort"] > 0 and not ran_v5, label
+        elif engine == "v3":
+            assert kv3.LAUNCHES["partition_level"] > 0 and not ran_v5, label
         elif engine is not None:
             assert ran_v5 == (engine == "v5"), (label, engine, ran_v5)
         assert_equal(res.keys, ref[0], label)
@@ -1148,7 +1344,7 @@ def main():
     # ---- the in-place v5 engine
     torch.cuda.empty_cache()
     close = path("v5", [k for k, (mod, _, _) in KERNELS.items()
-                        if mod != "pk"])
+                        if mod in ("kv4", "kv5")])
     big = V5_PAIRS_LOGN
     held = held_bytes(1 << big, torch.uint32, torch.uint64)
     fits = check_fits(1 << big, 3, dev, cfg, held)
@@ -1221,6 +1417,50 @@ def main():
               f"median {t['port']:.3f} ms, torch.sort median "
               f"{t['torch']:.3f} ms; 4 runs each, alternated")
         del x, got
+    close()
+
+    # ---- the v3 engine (engine="v3", default config)
+    torch.cuda.empty_cache()
+    close = path("v3", ["partition_level", "terminal_sort_write"])
+    for label, logn, kk, rk, heavy, rounds in V3_CASES:
+        n = 1 << logn
+        keys, rids = ((make_keys(n, heavy, SEED + 19 + logn, dev), None)
+                      if heavy else
+                      make_input(n, kk, rk, SEED + 19 + logn, dev))
+        plans = []
+        make_plan = engine_v3.make_plan
+        engine_v3.make_plan = lambda *a, **kw: (
+            plans.append(make_plan(*a, **kw)), plans[-1])[1]
+        try:
+            run_case(label, keys, rids, rounds,
+                     (lambda s: None) if heavy else no_fallback(label),
+                     config=v3cfg, engine="v3")
+        finally:
+            engine_v3.make_plan = make_plan
+        g = plans[0]        # the checked sort's plan
+        print(f"main {label}: plan cap_rows {g.cap_rows} rmax {g.rmax} "
+              f"pitch {g.pitch}, {g.l1_tiles.shape[0]} L1 tiles, "
+              f"{int((g.l2_tiles[:, 2] < (1 << 30)).sum())} live of "
+              f"{g.l2_tiles.shape[0]} L2 tiles, "
+              f"{int(g.term_valid.sum())} terminal buckets")
+        per_sort = {name: sum(r["calls"] for (lbl, nm, _), r
+                              in checker.by_input.items()
+                              if lbl == label and nm == name)
+                    for name in ("partition_level", "terminal_sort_write")}
+        print(f"main {label}: launches in the checked sort {per_sort}, "
+              f"value-fill buckets {checker.fill_buckets.get(label, 0)}")
+        if not heavy:
+            assert per_sort == {"partition_level": 2,
+                                "terminal_sort_write": 1}, (label, per_sort)
+        if heavy:
+            assert checker.fill_buckets.get(label, 0) > 0, label
+        res = sort(keys, rids, config=v3cfg, timing=True)
+        print(f"main {label} phases (host clock, synchronised):")
+        print(res.pretty_times())
+        del res
+        if logn == 28:
+            breakdown(label, lambda: sort(keys, rids, config=v3cfg))
+        del keys, rids
     close()
 
     log.close()

@@ -16,11 +16,15 @@ lexicographically by (key, *rid words), and joined back.  Data that is
 not a tensor goes to the CUDA device; a CPU tensor stays on the CPU,
 where ``engine="auto"`` runs plain ``torch.sort``.
 
-``engine="pallas"`` runs the v1 MSD engine (``ops/pallas_engine.py``) as
-the reference routes it: uint32 keys with no rids or rids of at most 32
-bits, and uint64 keys without rids; every other key type goes to
-``torch.sort``.  64-bit rids with uint32 keys raise ``ValueError``: the
-reference keeps only their low words there (ROADMAP.md C11).
+``engine="pallas"`` (the v1 MSD engine, ``ops/pallas_engine.py``) and
+``engine="v3"`` (``ops/engine_v3.py``) run as the reference routes them:
+uint32 keys with no rids or rids of at most 32 bits, and uint64 keys
+without rids (as (hi, lo) words); every other key type, and uint64 keys
+with rids, go to ``torch.sort``.  64-bit rids with uint32 keys raise
+``ValueError``: the reference keeps only their low words there
+(ROADMAP.md C11, C13).  ``engine="xla"`` is the reference's portable
+engine (``ops/xla_engine.py``): one library sort, pairs stable by key
+only.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, SortConfig
-from .ops import engine_v4, engine_v5, keycodec, pallas_engine
+from .ops import (engine_v3, engine_v4, engine_v5, keycodec, pallas_engine,
+                  xla_engine)
 from .ops.kernels_v4 import LANES
 from .utils.checking import check  # re-exported
 from .utils.timing import PhaseTimer
@@ -94,8 +99,8 @@ def _select_engine(cfg: SortConfig, keys: torch.Tensor, nplanes: int,
                    held: Optional[int] = None) -> str:
     """``auto``: on a CUDA tensor the engine ``check_fits`` picks (v4, or
     v5 where v4 does not fit), on a CPU tensor plain ``torch.sort``.
-    ``v4``, ``v5`` and ``pallas`` on a CPU tensor run the kernels' plain
-    versions;
+    ``v4``, ``v5``, ``v3`` and ``pallas`` on a CPU tensor run the
+    kernels' plain versions;
     ``v5`` on the card must pass v5's own fit check (``fits_v5``).
     ``held``: as in ``fits_v5``."""
     engine = cfg.engine
@@ -103,10 +108,10 @@ def _select_engine(cfg: SortConfig, keys: torch.Tensor, nplanes: int,
         if not keys.is_cuda:
             return "torch"
         return check_fits(keys.shape[0], nplanes, keys.device, cfg, held)
-    if engine not in ("v4", "v5", "pallas", "torch"):
+    if engine not in ("v4", "v5", "v3", "pallas", "xla", "torch"):
         raise NotImplementedError(
-            f"engine {engine!r} is not ported yet (ROADMAP.md A8, A11-A13); "
-            "the port has 'auto', 'v4', 'v5', 'pallas' and 'torch'")
+            f"engine {engine!r} is not ported yet (ROADMAP.md A8, A11); the "
+            "port has 'auto', 'v4', 'v5', 'v3', 'pallas', 'xla' and 'torch'")
     if engine == "v5" and keys.is_cuda:
         fits_v5(keys.shape[0], nplanes, keys.device, cfg, held)
     return engine
@@ -254,10 +259,12 @@ def sort(
                 f"rids {tuple(rids.shape)} on {rids.device} do not match "
                 f"keys {tuple(keys.shape)} on {keys.device}")
     timer = PhaseTimer(enabled=timing)
-    if config.engine == "pallas" and (
+    if config.engine in ("pallas", "v3") and (
             keys.dtype == torch.uint32
             or (keys.dtype == torch.uint64 and rids is None)):
-        return _sort_pallas(keys, rids, config, timer)
+        return _sort_words(keys, rids, config, timer)
+    if config.engine == "xla":
+        return _sort_xla(keys, rids, timer)
     kplanes = _key_planes(keys.contiguous())
     vplanes = _rid_planes(rids) if rids is not None else ()
     engine = _select_engine(
@@ -270,7 +277,7 @@ def sort(
     elif engine == "v5":
         outs, vouts = engine_v5.sort_v5(kplanes[0], kplanes[1:] + vplanes,
                                         config, timer=timer)
-    else:   # "torch", and "pallas" for the key types v1 does not take
+    else:   # "torch", and "pallas"/"v3" for the key types they do not take
         with timer.phase("local_sort"):
             outs, vouts = engine_v4._torch_fallback(
                 kplanes[0], kplanes[1:] + vplanes)
@@ -283,25 +290,49 @@ def sort(
                       synced=engine in ("v4", "v5"))
 
 
-def _sort_pallas(keys: torch.Tensor, rids: Optional[torch.Tensor],
-                 config: SortConfig, timer: PhaseTimer) -> SortResult:
-    """``engine="pallas"`` for uint32 keys (rids of at most 32 bits,
-    returned in their dtype) and for uint64 keys without rids (split into
-    (hi, lo) words, ``msd_sort_u64``)."""
+def _sort_words(keys: torch.Tensor, rids: Optional[torch.Tensor],
+                config: SortConfig, timer: PhaseTimer) -> SortResult:
+    """``engine="pallas"`` (``msd_sort``) or ``engine="v3"``
+    (``sort_v3``) for uint32 keys (rids of at most 32 bits, carried as one
+    uint32 word and returned in their dtype) and for uint64 keys without
+    rids (split into (hi, lo) words: ``msd_sort_u64``, or v3's pairs
+    path).  v3 synchronises on its overflow flag, so its result is
+    synced."""
+    v3 = config.engine == "v3"
     if keys.dtype == torch.uint64:
         hi, lo = keycodec.split_u64(keys.contiguous())
-        shi, slo = pallas_engine.msd_sort_u64(hi, lo, config, timer=timer)
+        sort_hi_lo = engine_v3.sort_v3 if v3 else pallas_engine.msd_sort_u64
+        shi, slo = sort_hi_lo(hi, lo, config, timer=timer)
         return SortResult(keys=keycodec.join_u64(shi, slo), rids=None,
-                          times=timer.report())
+                          times=timer.report(), synced=v3)
     if rids is not None and rids.element_size() == 8:
         raise ValueError(
-            f"engine='pallas' carries rids as one uint32 word; {rids.dtype} "
-            "rids would lose their high words (the reference keeps only the "
-            "low word): use engine='v4', which carries 64-bit rids "
-            "(ROADMAP.md C11)")
-    out_k, out_r = pallas_engine.msd_sort(keys, rids, config, timer=timer)
+            f"engine={config.engine!r} carries rids as one uint32 word; "
+            f"{rids.dtype} rids would lose their high words (the reference "
+            "keeps only the low word): use engine='v4', which carries "
+            "64-bit rids (ROADMAP.md C11, C13)")
+    words = _rid_planes(rids)[0] if rids is not None else None
+    sort_words = engine_v3.sort_v3 if v3 else pallas_engine.msd_sort
+    out_k, out_r = sort_words(keys, words, config, timer=timer)
     if rids is not None:
         out_r = _join_rids((out_r.view(torch.int32),), rids.dtype)
+    return SortResult(keys=out_k, rids=out_r, times=timer.report(),
+                      synced=v3)
+
+
+def _sort_xla(keys: torch.Tensor, rids: Optional[torch.Tensor],
+              timer: PhaseTimer) -> SortResult:
+    """``engine="xla"``: ``xla_engine.sort_keys`` / ``sort_pairs`` (stable
+    by key only, ROADMAP.md C12) on any key type the port sorts."""
+    if keys.dtype not in KEY_DTYPES:
+        raise TypeError(f"unsupported key dtype {keys.dtype}; the port "
+                        f"sorts {', '.join(map(str, KEY_DTYPES))}")
+    with timer.phase("local_sort"):
+        if rids is None:
+            out_k, out_r = xla_engine.sort_keys(keys), None
+        else:
+            out_k, out_r = xla_engine.sort_pairs(keys, rids)
+        timer.sync(out_k)
     return SortResult(keys=out_k, rids=out_r, times=timer.report())
 
 

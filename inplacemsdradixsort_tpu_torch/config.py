@@ -2,8 +2,8 @@
 
 The fields keep the names and defaults of ``inplacemsdradixsort_tpu``'s
 ``SortConfig``, so that one kwargs dict configures both packages in the
-parity tests.  Only the fields that the ported v4, v5 and v1 paths read
-are here; the fields of engines not yet ported (v3, LSB, distributed)
+parity tests.  Only the fields that the ported v4, v5, v3 and v1 paths
+read are here; the fields of engines not yet ported (LSB, distributed)
 join with their engines.  ``interpret`` has no counterpart: a kernel runs its
 plain PyTorch version when its input lies on the CPU.
 """
@@ -26,11 +26,12 @@ class SortConfig:
     range_bits: int = 8           # log2(ranges) per distribution level
 
     # --- planner (sample -> bounds) ---
+    fudge: float = 1.125          # v3 per-range over-allocation slack
     sample_rate: float = 0.005    # sample fraction of N (msb_64.c:2320)
     sample_cap: int = 500_000     # max sample size       (msb_64.c:2321-2322)
     use_sample_splitters: bool = True   # hybrid sample+radix delimiters
 
-    # --- v4 engine geometry (None = auto) ---
+    # --- v3/v4 engine geometry (None = auto) ---
     v3_sort_rows: int = 1024          # tile rows (x128) incl. rmax pad rows
     v3_rmax: Optional[int] = None     # ranges per parent per level
     v3_cap_rows: Optional[int] = None  # terminal bucket capacity rows
@@ -53,7 +54,8 @@ class SortConfig:
     term_classes: int = 3
 
     # "auto" (v4 for a CUDA tensor, v5 where v4 does not fit, torch for a
-    # CPU tensor) | "v4" | "v5" | "pallas" (the v1 engine) | "torch"
+    # CPU tensor) | "v4" | "v5" | "v3" | "pallas" (the v1 engine) |
+    # "xla" (the reference's portable engine: stable by key) | "torch"
     engine: str = "auto"
 
     def __post_init__(self):
@@ -63,6 +65,8 @@ class SortConfig:
                              f"multiple of {LANES}")
         if not 1 <= self.range_bits <= 12:
             raise ValueError(f"range_bits={self.range_bits} outside [1, 12]")
+        if not self.fudge >= 1.0:
+            raise ValueError(f"fudge={self.fudge} is below 1.0")
 
     @property
     def tile_rows(self) -> int:

@@ -1,7 +1,8 @@
 """Build the CUDA sources under ``csrc/`` into one ctypes-loaded shared
 library: ``kernels_v4.cu`` (the v4 level, terminal and splice kernels),
-``kernels_v5.cu`` (the v5 in-place kernels) and ``pallas_kernels.cu``
-(the v1 kernels), which share ``bitonic.cuh``.
+``kernels_v5.cu`` (the v5 in-place kernels), ``kernels_v3.cu`` (the v3
+partition level) and ``pallas_kernels.cu`` (the v1 kernels), which share
+``bitonic.cuh``.
 
 The library is built at first use on a CUDA tensor, never at import (the
 package imports on machines without ``nvcc``), by one ``nvcc`` call into
@@ -27,7 +28,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{name}.cu"
-                for name in ("kernels_v4", "kernels_v5", "pallas_kernels"))
+                for name in ("kernels_v4", "kernels_v5", "kernels_v3",
+                             "pallas_kernels"))
 HEADERS = (CSRC / "bitonic.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,6 +50,9 @@ _SIGNATURES = {
     "kv5_seqroute_level": _PLANES + [_LL] + [_P] * 9
     + [_I, _I, _I, _I, _I, _I, _P],
     "kv5_block_permute": _PLANES + [_P, _P, _I, _I, _P],
+    # kernels_v3.cu (key and value plane: the value plane NULL keys-only)
+    "kv3_partition_level": [_P, _P, _LL] + [_P] * 10 + [_LL, _P, _P, _LL]
+    + [_P] * 3 + [_I] * 9 + [_P],
     # pallas_kernels.cu (keys, vals: vals NULL for keys only)
     "kv1_tile_sort": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
     "kv1_distribute": [_P, _P, _LL, _P, _P, _P, _P, _P, _LL, _LL, _I, _LL,

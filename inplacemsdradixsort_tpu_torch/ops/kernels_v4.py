@@ -360,7 +360,10 @@ def hist_level(src: torch.Tensor, meta: torch.Tensor, bounds: torch.Tensor,
     memory (4 bytes a key) and by shared-memory atomics under skew.
     Design: one block per tile, binary search over the parent's bounds in
     shared memory, shared-memory counters; slack lanes are skipped by
-    index, since SENT equals a real biased 0xFFFFFFFF.
+    index, since SENT equals a real biased 0xFFFFFFFF.  CUDA rather than
+    Triton: the binary search and the counters live in shared memory
+    with shared atomics, which Triton's block model does not express,
+    and the kernel shares ``route_level``'s tile layout and launcher.
     """
     _check_level(src, meta, bounds, ntiles, rmax)
     if src.device.type == "cpu":
@@ -402,7 +405,10 @@ def route_level(srcs: Sequence[torch.Tensor], meta: torch.Tensor,
     then the pads fill the run's tail.  The kernel is templated on the
     plane count, so a keys-only launch does no per-plane work.  Stores
     are element-exact (the TPU's 64-row chunk stores overshoot and rely
-    on an in-order grid) and addresses are 64-bit.
+    on an in-order grid) and addresses are 64-bit.  CUDA rather than
+    Triton: each element's slot comes from a shared-memory atomic and
+    the stores are a data-dependent scatter, neither of which Triton's
+    block model expresses.
     """
     srcs = _check_planes("srcs", srcs, meta.device)
     tables = (("cnt", cnt), ("dst", dst), ("padv", padv))
@@ -454,7 +460,11 @@ def terminal_write(srcs: Sequence[torch.Tensor], btbl: torch.Tensor,
     ``_finish`` calls it, so that the class capacity clamps exactly as
     on the reference.  Mode 1 never occurs with payload planes (the
     planner drops no range then): the wrapper raises if it does, which
-    costs a device sync per multi-plane call.
+    costs a device sync per multi-plane call.  CUDA rather than Triton:
+    one block owns a bucket of up to 2^19 tuples and orders its global
+    network steps with ``__syncthreads()`` between passes over shared
+    and global memory; Triton has no barrier across a block's passes
+    over global memory.
     """
     dev = btbl.device
     srcs = _check_planes("srcs", srcs, dev)

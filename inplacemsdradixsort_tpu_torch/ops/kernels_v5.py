@@ -312,7 +312,10 @@ def block_permute(w: Sequence[torch.Tensor], cyc_off: torch.Tensor,
     staging memory.  Long cycles run serially: their time is the cycle
     length times a few read latencies.  Bound by one read and one write
     of every moved block.  The result is deterministic (each element moves
-    once, to one place).
+    once, to one place).  CUDA rather than Triton: each thread walks a
+    cycle of data-dependent length, reading ahead and writing behind
+    through a table of slots, a serial gather-scatter with no block
+    shape that Triton's model could tile.
     """
     w = _check_w("w", w)
     dev = w[0].device

@@ -2,9 +2,9 @@
 
 Counterparts of ``inplacemsdradixsort_tpu/ops/engine_v3.py``'s
 ``_bias_np``, ``_ceil_div``, ``_shape_class`` and ``_quantile_bounds``,
-which the v4 planner and the deep tier import (``engine_v3`` itself is
-not ported), and of ``engine_v4.py``'s host-side ``_bounds_hybrid``, which
-the v5 planner builds on.
+which the v3 and v4 planners and the deep tier import, and of
+``engine_v4.py``'s host-side ``_bounds_hybrid``, which the v5 planner
+builds on.
 """
 
 from __future__ import annotations

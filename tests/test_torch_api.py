@@ -26,6 +26,8 @@ from inplacemsdradixsort_tpu_torch.ops import engine_v4 as te
 from inplacemsdradixsort_tpu_torch.ops import engine_v5 as te5
 from inplacemsdradixsort_tpu_torch.ops import keycodec as tkc
 from inplacemsdradixsort_tpu_torch.utils.checking import check_permutation
+from torch_v3_cases import (check_v3_plan_and_pipeline_match_jax,
+                            check_v3_sort_against_numpy)
 
 V4 = SortConfig(engine="v4", v3_sort_rows=32, v3_rmax=8, v3_cap_rows=32)
 N = 70_000
@@ -324,24 +326,73 @@ V1 = SortConfig(engine="pallas", tile_elems=1024, range_bits=3)
 
 
 def test_engine_pallas_routing(monkeypatch):
-    """engine="pallas" as the reference routes it: uint32 keys (rids of
-    at most 32 bits, returned in their own dtype) through msd_sort,
-    uint64 keys without rids through msd_sort_u64, every other key type
-    to torch.sort; 64-bit rids with uint32 keys raise ValueError naming
-    v4 (the reference would keep their low words, ROADMAP.md C11)."""
+    """engine="pallas" and engine="v3" as the reference routes them:
+    uint32 keys (rids of at most 32 bits, returned in their own dtype)
+    through msd_sort / sort_v3, uint64 keys without rids through
+    msd_sort_u64 / sort_v3 on (hi, lo), every other key type to
+    torch.sort; 64-bit rids with uint32 keys raise ValueError naming v4
+    (the reference would keep their low words, ROADMAP.md C11, C13).
+    engine="xla" sorts every key type stably by key only, as the
+    reference's xla_engine (ROADMAP.md C12).  Then the v3 engine against
+    the JAX one and against numpy (``torch_v3_cases``)."""
+    from inplacemsdradixsort_tpu_torch.ops import engine_v3 as te3
     from inplacemsdradixsort_tpu_torch.ops import pallas_engine as tpe
     ran = []
-    for fn in ("msd_sort", "msd_sort_u64"):
-        f = getattr(tpe, fn)
-        monkeypatch.setattr(tpe, fn, lambda *a, _f=f, _n=fn, **k: (
+    for mod, fn in ((tpe, "msd_sort"), (tpe, "msd_sort_u64"),
+                    (te3, "sort_v3")):
+        f = getattr(mod, fn)
+        monkeypatch.setattr(mod, fn, lambda *a, _f=f, _n=fn, **k: (
             ran.append(_n), _f(*a, **k))[1])
-    for kind in ("u32", "u32+u32", "u32+i16", "u32+u8", "u64", "i32", "f32",
-                 "u64+u32", "u32+u64"):
-        ran.clear()
-        _check_pallas_route(kind, ran)
+    for cfg, want in ((V1, {"u32": ["msd_sort"], "u64": ["msd_sort_u64"]}),
+                      (V3, {"u32": ["sort_v3"], "u64": ["sort_v3"]})):
+        for kind in ("u32", "u32+u32", "u32+i16", "u32+u8", "u64", "i32",
+                     "f32", "u64+u32", "u32+u64"):
+            ran.clear()
+            _check_pallas_route(kind, ran, cfg, want)
+    _check_xla_route()
+    monkeypatch.undo()
+    check_v3_plan_and_pipeline_match_jax()
+    check_v3_sort_against_numpy()
 
 
-def _check_pallas_route(kind, ran):
+V3 = SortConfig(engine="v3")
+
+
+def _check_xla_route():
+    """engine="xla" against the reference's xla_engine: equal keys keep
+    their input order whatever their rids; NaNs last, -0 equal to +0."""
+    from inplacemsdradixsort_tpu.ops import xla_engine as jx
+    from inplacemsdradixsort_tpu_torch.ops import xla_engine as tx
+    rng = np.random.default_rng(14)
+    n = 3000
+    rids = rng.integers(0, 2**32, n, dtype=np.uint32)
+    f32 = rng.standard_normal(n).astype(np.float32)
+    f32[:6] = [0.0, -0.0, np.nan, -np.inf, 0.0, -0.0]
+    keys = {"u32": rng.integers(0, 50, n, dtype=np.uint32) * 85899345,
+            "i32": rng.integers(-20, 20, n).astype(np.int32),
+            "f32": f32}
+    xla = SortConfig(engine="xla")
+    for kind, k in keys.items():
+        wk, wr = jx.sort_pairs(jnp.asarray(k), jnp.asarray(rids))
+        res = rt.sort(_t(k), _t(rids), config=xla)
+        np.testing.assert_array_equal(res.keys.numpy().view(np.uint32),
+                                      np.asarray(wk).view(np.uint32))
+        np.testing.assert_array_equal(res.rids.numpy(), np.asarray(wr))
+        np.testing.assert_array_equal(
+            rt.sort(_t(k), config=xla).keys.numpy().view(np.uint32),
+            np.asarray(jx.sort_keys(jnp.asarray(k))).view(np.uint32))
+        np.testing.assert_array_equal(
+            tx.argsort_u32(_t(k)).numpy(),
+            np.asarray(jx.argsort_u32(jnp.asarray(k))))
+    k64 = rng.integers(0, 4, n, dtype=np.uint64) << np.uint64(62)
+    for dt in (np.uint64, np.int64):
+        res = rt.sort(_t(k64.view(dt)), _t(rids), config=xla)
+        order = np.argsort(k64.view(dt), kind="stable")
+        np.testing.assert_array_equal(res.keys.numpy(), k64.view(dt)[order])
+        np.testing.assert_array_equal(res.rids.numpy(), rids[order])
+
+
+def _check_pallas_route(kind, ran, cfg, want_ran):
     rng = np.random.default_rng(12)
     n = 3000
     key_t, _, rid_t = kind.partition("+")
@@ -358,13 +409,12 @@ def _check_pallas_route(kind, ran):
                             dtype=np.int64).astype(dt)
     if kind == "u32+u64":
         with pytest.raises(ValueError, match="'v4'"):
-            rt.sort(_t(keys), _t(rids), config=V1)
+            rt.sort(_t(keys), _t(rids), config=cfg)
         assert not ran, kind
         return
-    res = rt.sort(_t(keys), None if rids is None else _t(rids), config=V1)
-    want_ran = {"u32": ["msd_sort"], "u64": ["msd_sort_u64"]}.get(
-        key_t if kind != "u64+u32" else "", [])
-    assert ran[:1] == want_ran, (kind, ran)
+    res = rt.sort(_t(keys), None if rids is None else _t(rids), config=cfg)
+    want = want_ran.get(key_t if kind != "u64+u32" else "", [])
+    assert ran[:1] == want, (kind, ran)
     # ties of equal keys in rid order (rids here are non-negative)
     order = (np.argsort(keys, kind="stable") if rids is None
              else np.lexsort((rids, keys)))

@@ -7,6 +7,7 @@ runs where JAX is not installed:
 """
 
 import functools
+import inspect
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ import torch
 
 from inplacemsdradixsort_tpu_torch import SortConfig, sort, sort_with_indices
 from inplacemsdradixsort_tpu_torch.ops import deep, engine_v4, engine_v5
+from inplacemsdradixsort_tpu_torch.ops import kernels_v3 as kv3
 from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as kv4
 from inplacemsdradixsort_tpu_torch.ops import kernels_v5 as kv5
 from inplacemsdradixsort_tpu_torch.ops import pallas_engine
@@ -133,12 +135,14 @@ def _replay(wrappers, calls):
 
 def test_kernels_match_plain_versions(cuda):
     """Record one tiny-geometry sort's kernel calls; rerun each kernel and
-    its plain version on the same CUDA tensors."""
+    its plain version on the same CUDA tensors.  Then the v3 kernels
+    (``_check_v3_on_card``)."""
     x = torch.from_numpy(_keys(70_000, 2).view(np.int32)).to(cuda)
     wrappers, calls = _record(
         lambda: engine_v4.sort_v4(x, (), SortConfig(**TINY)))
     assert {c[0] for c in calls} == set(wrappers) - {"splice_runs"}
     _replay(wrappers, calls)
+    _check_v3_on_card(cuda)
 
 
 @pytest.mark.parametrize("nvals", [1, 2, 3])
@@ -572,3 +576,100 @@ def _check_api_pallas(cuda, kind):
     if rid is not None:
         assert res.rids.dtype == torch.int16
         np.testing.assert_array_equal(res.rids.cpu().numpy(), rid[order])
+
+
+V3_TINY = dict(v3_sort_rows=32, v3_rmax=8, v3_cap_rows=32)
+
+
+def _v3_replay(cuda, fn):
+    """Run ``fn`` with every v3 kernel call replayed on its plain version
+    on the same CUDA tensors: partition counts and flag exactly, arenas
+    child by child through ``canonical_children`` (order inside a child
+    is not part of the contract; nor, under overflow, which tuples an
+    overflowing child keeps), the terminal output on every element the
+    buckets write.  Returns the kernels seen."""
+    wrappers = {k: getattr(kv3, k) for k in kv3.LAUNCHES}
+    seen = set()
+
+    def checked(name):
+        def run(*args, **kw):
+            out = wrappers[name](*args, **kw)
+            a = inspect.signature(wrappers[name]).bind(*args, **kw)
+            a.apply_defaults()
+            a = a.arguments
+            if name == "partition_level":
+                claimed = torch.zeros(a["dst_start"].numel(),
+                                      dtype=torch.long, device=cuda)
+                ref = kv3.partition_level_ref(*args, **kw, claimed=claimed)
+                for i in range(2, 6):
+                    assert torch.equal(out[i], ref[i]), (name, i)
+                # which tuples an overflowing child keeps is not defined
+                fits = claimed <= a["dst_cap"]
+                planes = [p for p in out[:2] if p is not None]
+                want = [p for p in ref[:2] if p is not None]
+                start = a["dst_start"][fits]
+                for g, w in zip(
+                        kv3.canonical_children(planes, start, out[2][fits]),
+                        kv3.canonical_children(want, start, out[2][fits])):
+                    assert torch.equal(g, w), name
+            else:
+                ref = kv3.terminal_sort_write_ref(*args, **kw)
+                bt = a["btbl"].long()
+                occ, real, mode = bt[:, 1], bt[:, 2], bt[:, 3]
+                eff = torch.where(mode == 0, torch.minimum(
+                    real, occ.clamp(0, a["cap_rows"]) * LANES), real)
+                pos = kv4._spans(a["out_off"].long(), eff.clamp(min=0))
+                for g, w in zip(out, ref):
+                    if g is not None:
+                        assert torch.equal(g.view(-1)[pos],
+                                           w.view(-1)[pos]), name
+            seen.add(name)
+            return out
+        return run
+    for k in wrappers:
+        setattr(kv3, k, checked(k))
+    try:
+        fn()
+    finally:
+        for k, f in wrappers.items():
+            setattr(kv3, k, f)
+    return seen
+
+
+def _check_v3_on_card(cuda):
+    """api.sort(engine="v3") on the card: every partition_level and
+    terminal_sort_write call equals its plain version on the same
+    tensors, at the reference tests' geometry (keys, 30% 0xFFFFFFFF with
+    value-fill buckets, stable pairs) and at the default one (buckets
+    above the terminal's shared tile); the results equal numpy, and a
+    uniform sort is two partition launches and one terminal launch."""
+    cases = [(V3_TINY, 70_000, "uniform", False),
+             (V3_TINY, 70_000, "maxheavy", False),
+             (V3_TINY, 70_000, "dup8", True),
+             ({}, (1 << 22) + 77, "uniform", False),
+             ({}, (1 << 22) + 77, "uniform", True)]
+    for geom, n, dist, pairs in cases:
+        x = _keys(n, 31, dist)
+        rid = np.arange(n, dtype=np.uint32) if pairs else None
+        box = {}
+        kv3.reset_launches()
+        seen = _v3_replay(cuda, lambda: box.update(r=sort(
+            torch.from_numpy(x).to(cuda),
+            None if rid is None else torch.from_numpy(rid).to(cuda),
+            config=SortConfig(engine="v3", **geom))))
+        assert seen == set(kv3.LAUNCHES), (dist, seen)
+        if dist == "uniform":
+            assert kv3.LAUNCHES == {"partition_level": 2,
+                                    "terminal_sort_write": 1}, kv3.LAUNCHES
+        order = np.argsort(x, kind="stable")
+        np.testing.assert_array_equal(box["r"].keys.cpu().numpy(), x[order])
+        if pairs:
+            np.testing.assert_array_equal(box["r"].rids.cpu().numpy(),
+                                          rid[order])
+    # uint64 keys through (hi, lo), default geometry
+    rng = np.random.default_rng(3)
+    k64 = rng.integers(0, 2**64, (1 << 21) + 3, dtype=np.uint64)
+    k64[::4] = np.uint64(2**64 - 1)
+    res = sort(torch.from_numpy(k64).to(cuda), config=SortConfig(
+        engine="v3"))
+    np.testing.assert_array_equal(res.keys.cpu().numpy(), np.sort(k64))

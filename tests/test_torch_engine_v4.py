@@ -339,6 +339,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, inplacemsdradixsort_tpu_torch, "
             "inplacemsdradixsort_tpu_torch.ops.engine_v4, "
             "inplacemsdradixsort_tpu_torch.ops.engine_v5, "
+            "inplacemsdradixsort_tpu_torch.ops.engine_v3, "
+            "inplacemsdradixsort_tpu_torch.ops.kernels_v3, "
+            "inplacemsdradixsort_tpu_torch.ops.xla_engine, "
             "inplacemsdradixsort_tpu_torch.ops.kernels_v5, "
             "inplacemsdradixsort_tpu_torch.ops.pallas_engine, "
             "inplacemsdradixsort_tpu_torch.ops.pallas_kernels, "

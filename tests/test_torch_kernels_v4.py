@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from inplacemsdradixsort_tpu.ops import kernels_v4 as jk
 from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as tk
 from torch_parity import lax_network
+from torch_v3_cases import check_v3_kernels_match_jax
 from inplacemsdradixsort_tpu_torch.ops.plan_util import _bias_np
 
 SORT_ROWS, RMAX, CAP = 32, 8, 32
@@ -237,6 +238,9 @@ def _terminal_case(seed, fill=True, cap=CAP):
 
 
 def test_terminal_write_matches_jax():
+    """The terminal per capacity class against the reference's; then the
+    v3 kernels, whose terminal launches this kernel
+    (``torch_v3_cases.check_v3_kernels_match_jax``)."""
     arena, btbl, caps, n = _terminal_case(4)
     out_rows = -(-n // LANES) + 2 * tk.CHUNK_ROWS + 2
     outs = None
@@ -254,6 +258,7 @@ def test_terminal_write_matches_jax():
     # the value-fill bucket wrote its unbiased fill value
     o, r = int(btbl[3, 5]), int(btbl[3, 2])
     assert np.all(got.numpy()[o:o + r].view(np.uint32) == 0xDEADBEEF)
+    check_v3_kernels_match_jax()
 
 
 def test_terminal_write_sorts_each_bucket():

@@ -75,7 +75,8 @@ def _check_defined(name, targs, got, want):
 
 def test_bitonic_sort_and_bias_match_jax():
     """Ties of keys, and of whole (key, val) tuples, sort as the
-    reference network sorts them; the key bias round-trips as the
+    reference network sorts them, and ``bitonic_merge`` merges as the
+    reference's merge stage does; the key bias round-trips as the
     reference's does."""
     rng = np.random.default_rng(2)
     for pairs in PAIRS:
@@ -90,6 +91,22 @@ def test_bitonic_sort_and_bias_match_jax():
             np.testing.assert_array_equal(gk[b].numpy(), np.asarray(wk))
             if pairs:
                 np.testing.assert_array_equal(gv[b].numpy(), np.asarray(wv))
+    # the merge stage alone: on bitonic blocks (it sorts them) and on
+    # arbitrary ones (it gives what the network's steps give)
+    for rows in (1, 4):
+        k = rng.integers(-3, 3, (rows, LANES)).astype(np.int32)
+        v = rng.integers(-2, 2, (rows, LANES)).astype(np.int32)
+        h = rows * LANES // 2
+        kb = np.concatenate([np.sort(k.reshape(-1)[:h]),
+                             np.sort(k.reshape(-1)[h:])[::-1]])
+        for kk, vv in ((kb.reshape(rows, LANES), None), (k, v), (k, None)):
+            gk, gv = tbit.bitonic_merge(_t(kk), _t(vv))
+            wk, wv = jbit.bitonic_merge(_j(kk), _j(vv))
+            np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+            if vv is not None:
+                np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(
+            tbit.bitonic_merge(_t(kb))[0].numpy().reshape(-1), np.sort(kb))
     x = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1], np.uint32)
     b = tbit.bias_u32(torch.from_numpy(x))
     np.testing.assert_array_equal(b.numpy(), np.asarray(

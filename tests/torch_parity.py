@@ -5,13 +5,16 @@ their in-tile sort in place of ``netsort.net_sort_multi``: for ``nlex =
 nplanes - 1`` both give the one ascending order of the tuples, and the
 network's interpret-mode compile takes minutes for three planes.  The
 network itself is held against the port's plain versions at small
-capacities in ``tests/test_torch_kernels_v4.py``.
+capacities in ``tests/test_torch_kernels_v4.py``.  ``lax_network_v3``
+does the same for the v3 kernels' ``netsort.net_sort`` (pairs cases;
+the keys-only cases keep the network).
 """
 
 import contextlib
 
 import jax
 
+from inplacemsdradixsort_tpu.ops import kernels_v3 as jk3
 from inplacemsdradixsort_tpu.ops import kernels_v4 as jk
 
 
@@ -40,3 +43,27 @@ def lax_network():
         jk.net_sort_multi = saved
         jk._route_exe.cache_clear()
         jk._terminal_exe.cache_clear()
+
+
+def lax_sort_pairs(key, val=None):
+    """``net_sort``'s order by ``lax.sort``: a (rows, 128) block sorted in
+    flat order, by (key, val) when ``val`` rides along."""
+    planes = (key,) if val is None else (key, val)
+    out = lax_sort_multi(planes)
+    return out[0], (out[1] if val is not None else None)
+
+
+@contextlib.contextmanager
+def lax_network_v3():
+    """Run the reference's v3 kernels with ``lax_sort_pairs`` as their
+    in-tile sort; their kernel caches are cleared on both sides."""
+    saved = jk3.net_sort
+    jk3.net_sort = lax_sort_pairs
+    jk3._partition_exe.cache_clear()
+    jk3._terminal_exe.cache_clear()
+    try:
+        yield
+    finally:
+        jk3.net_sort = saved
+        jk3._partition_exe.cache_clear()
+        jk3._terminal_exe.cache_clear()
