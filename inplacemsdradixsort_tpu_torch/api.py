@@ -24,7 +24,9 @@ with rids, go to ``torch.sort``.  64-bit rids with uint32 keys raise
 ``ValueError``: the reference keeps only their low words there
 (ROADMAP.md C11, C13).  ``engine="xla"`` is the reference's portable
 engine (``ops/xla_engine.py``): one library sort, pairs stable by key
-only.
+only.  ``engine="lsb"`` (``ops/engine_lsb.py``) takes every key type and
+rids of any width as the v4 engine does, and sorts them by LSB digit
+passes: stable by key only, as ``xla`` (ROADMAP.md C15).
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, SortConfig
-from .ops import (engine_v3, engine_v4, engine_v5, keycodec, pallas_engine,
-                  xla_engine)
+from .ops import (engine_lsb, engine_v3, engine_v4, engine_v5, keycodec,
+                  pallas_engine, xla_engine)
 from .ops.kernels_v4 import LANES
 from .utils.checking import check  # re-exported
 from .utils.timing import PhaseTimer
@@ -99,8 +101,8 @@ def _select_engine(cfg: SortConfig, keys: torch.Tensor, nplanes: int,
                    held: Optional[int] = None) -> str:
     """``auto``: on a CUDA tensor the engine ``check_fits`` picks (v4, or
     v5 where v4 does not fit), on a CPU tensor plain ``torch.sort``.
-    ``v4``, ``v5``, ``v3`` and ``pallas`` on a CPU tensor run the
-    kernels' plain versions;
+    ``v4``, ``v5``, ``v3``, ``pallas`` and ``lsb`` on a CPU tensor run
+    the kernels' plain versions;
     ``v5`` on the card must pass v5's own fit check (``fits_v5``).
     ``held``: as in ``fits_v5``."""
     engine = cfg.engine
@@ -108,10 +110,11 @@ def _select_engine(cfg: SortConfig, keys: torch.Tensor, nplanes: int,
         if not keys.is_cuda:
             return "torch"
         return check_fits(keys.shape[0], nplanes, keys.device, cfg, held)
-    if engine not in ("v4", "v5", "v3", "pallas", "xla", "torch"):
+    if engine not in ("v4", "v5", "v3", "pallas", "xla", "lsb", "torch"):
         raise NotImplementedError(
-            f"engine {engine!r} is not ported yet (ROADMAP.md A8, A11); the "
-            "port has 'auto', 'v4', 'v5', 'v3', 'pallas', 'xla' and 'torch'")
+            f"engine {engine!r} is not ported yet (ROADMAP.md A11, the "
+            "distributed sort); the port has 'auto', 'v4', 'v5', 'v3', "
+            "'pallas', 'xla', 'lsb' and 'torch'")
     if engine == "v5" and keys.is_cuda:
         fits_v5(keys.shape[0], nplanes, keys.device, cfg, held)
     return engine
@@ -245,7 +248,8 @@ def sort(
       total order: -0 < +0, NaNs by payload above +inf);
     - ``rids`` any integer payload of the same length; ties of equal keys
       are ordered by rid value (a stable sort when rids are the indices,
-      as in ``sort_with_indices``);
+      as in ``sort_with_indices``), except under ``engine="lsb"`` and
+      ``engine="xla"``, where equal keys keep their input order;
     - ``timing=True`` synchronises at phase edges and fills the 10-row
       report (msb_64.c:2384-2412 contract).
     """
@@ -277,6 +281,10 @@ def sort(
     elif engine == "v5":
         outs, vouts = engine_v5.sort_v5(kplanes[0], kplanes[1:] + vplanes,
                                         config, timer=timer)
+    elif engine == "lsb":
+        outs, vouts = engine_lsb.sort_lsb(kplanes[0], kplanes[1:] + vplanes,
+                                          config, timer=timer,
+                                          nkey=len(kplanes))
     else:   # "torch", and "pallas"/"v3" for the key types they do not take
         with timer.phase("local_sort"):
             outs, vouts = engine_v4._torch_fallback(

@@ -2,9 +2,9 @@
 
 The fields keep the names and defaults of ``inplacemsdradixsort_tpu``'s
 ``SortConfig``, so that one kwargs dict configures both packages in the
-parity tests.  Only the fields that the ported v4, v5, v3 and v1 paths
-read are here; the fields of engines not yet ported (LSB, distributed)
-join with their engines.  ``interpret`` has no counterpart: a kernel runs its
+parity tests.  Only the fields that the ported v4, v5, v3, v1, LSB and
+chunked paths read are here; the fields of the distributed sort, not yet
+ported, join with it.  ``interpret`` has no counterpart: a kernel runs its
 plain PyTorch version when its input lies on the CPU.
 """
 
@@ -36,6 +36,9 @@ class SortConfig:
     v3_rmax: Optional[int] = None     # ranges per parent per level
     v3_cap_rows: Optional[int] = None  # terminal bucket capacity rows
 
+    # --- LSB engine (``engine="lsb"``) ---
+    lsb_digit_bits: int = 8       # digit width per LSB pass (msb_64.c:1533)
+
     # --- v5 in-place engine geometry (None = auto) ---
     # L1 tile rows of the sequential-block partition (rows x 128 must be
     # a power of two)
@@ -55,7 +58,8 @@ class SortConfig:
 
     # "auto" (v4 for a CUDA tensor, v5 where v4 does not fit, torch for a
     # CPU tensor) | "v4" | "v5" | "v3" | "pallas" (the v1 engine) |
-    # "xla" (the reference's portable engine: stable by key) | "torch"
+    # "xla" (the reference's portable engine: stable by key) | "lsb"
+    # (LSB digit passes: stable by key) | "torch"
     engine: str = "auto"
 
     def __post_init__(self):

@@ -2,6 +2,10 @@
 // level (hist_level, route_level), the terminal sort (terminal_write) and
 // the run splice of the deep tier (splice_runs).
 //
+// The LSB engine's passes run the digit modes of the level kernels
+// (hist_digit_kernel, route_digit_kernel): counts by a radix digit of the
+// raw word, and a partition that is stable by that digit.
+//
 // Built by ops/_build.py, with the other sources of csrc/, by one
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
@@ -26,6 +30,16 @@ namespace {
 constexpr int LEVEL_THREADS = 512;   // hist_level / route_level block
 constexpr int TERM_THREADS = 1024;   // terminal_write block
 constexpr int SPLICE_THREADS = 256;  // splice_runs block
+constexpr int DIGIT_THREADS = 512;   // route_digit_kernel block
+constexpr int DIGIT_WARPS = DIGIT_THREADS / 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// The radix digit (raw >> shift) & mask of a raw uint32 word held in an
+// int32, shifted logically so that no sign bit leaks into the digit.
+__device__ __forceinline__ unsigned digit_of(int32_t raw, int shift,
+                                             unsigned mask) {
+  return ((uint32_t)raw >> shift) & mask;
+}
 
 // First d in [0, rmax) with k <= b[d] for non-decreasing inclusive upper
 // bounds b; rmax when k exceeds every bound.
@@ -82,6 +96,36 @@ __global__ void __launch_bounds__(LEVEL_THREADS) hist_level_kernel(
   for (long long i = threadIdx.x; i < m.nel; i += blockDim.x) {
     int d = find_range(sb, rmax, src[m.base + i] ^ xor_in);
     if (d < rmax) atomicAdd(&cnt[d], 1);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < rmax; d += blockDim.x)
+    hist[(long long)t * rmax + d] = cnt[d];
+}
+
+
+// One block per tile, digit mode: count each live element by the digit
+// of its raw word; digits >= rmax and slack lanes count nowhere.  The
+// lanes of a warp that share a digit add their count once
+// (__match_any_sync), which keeps the shared atomics off the critical
+// path when few digits occur.
+__global__ void __launch_bounds__(LEVEL_THREADS) hist_digit_kernel(
+    const int32_t* __restrict__ src, long long src_len,
+    const int32_t* __restrict__ meta, int32_t* __restrict__ hist, int pitch,
+    int rmax, int shift, unsigned mask) {
+  extern __shared__ int32_t smem[];
+  int* cnt = smem;               // rmax counters
+  const int t = blockIdx.x;
+  const TileMeta m = tile_meta(meta, t, pitch, src_len);
+  for (int d = threadIdx.x; d < rmax; d += blockDim.x) cnt[d] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (long long i0 = 0; i0 < m.nel; i0 += blockDim.x) {
+    const long long i = i0 + threadIdx.x;
+    const int d = i < m.nel ? (int)digit_of(src[m.base + i], shift, mask)
+                            : -1;
+    const unsigned peers = __match_any_sync(FULL_MASK, d);
+    if (d >= 0 && d < rmax && lane == __ffs(peers) - 1)
+      atomicAdd(&cnt[d], __popc(peers));
   }
   __syncthreads();
   for (int d = threadIdx.x; d < rmax; d += blockDim.x)
@@ -146,6 +190,95 @@ __global__ void __launch_bounds__(LEVEL_THREADS) route_level_kernel(
         out.p[0][o] = padv[row0 + d];
 #pragma unroll
         for (int p = 1; p < NP; ++p) out.p[p][o] = SENT;
+      }
+    }
+  }
+}
+
+
+// One block per tile, digit mode: a partition that is STABLE by the digit
+// of plane dp.  The block walks its tile in input order, one chunk of
+// DIGIT_THREADS elements at a time (thread i takes element i of the
+// chunk).  Inside a warp, an element's rank among the earlier lanes with
+// its digit is __popc(peers & lanes below), peers from __match_any_sync;
+// the warp's per-digit totals go to shared memory and one thread per
+// digit scans them in warp order, starting at the digit's running cursor,
+// which carries from chunk to chunk.  So each element's slot is the
+// number of earlier elements of the tile with its digit, and every run
+// holds its cnt[t, d] tuples in input order, then (-cnt) % 128 pad tuples
+// (padv[t, d] in plane dp, SENT in the others).  Stores are element-exact
+// with 64-bit addresses.
+template <int NP>
+__global__ void __launch_bounds__(DIGIT_THREADS) route_digit_kernel(
+    Planes<NP> src, long long src_len, const int32_t* __restrict__ meta,
+    const int32_t* __restrict__ cnt, const int32_t* __restrict__ dst,
+    const int32_t* __restrict__ padv, Planes<NP> out, long long out_len,
+    int pitch, int rmax, int shift, unsigned mask, int dp) {
+  extern __shared__ long long smem64[];
+  long long* sdst = smem64;                          // rmax run bases
+  int* scnt = (int*)(smem64 + rmax);                 // rmax run counts
+  int* cur = scnt + rmax;                            // rmax cursors
+  int* wcnt = cur + rmax;                            // [warp][digit] counts
+  int* woff = wcnt + DIGIT_WARPS * rmax;             // [warp][digit] slots
+  const int t = blockIdx.x;
+  const TileMeta m = tile_meta(meta, t, pitch, src_len);
+  const long long row0 = (long long)t * rmax;
+  for (int d = threadIdx.x; d < rmax; d += blockDim.x) {
+    scnt[d] = cnt[row0 + d];
+    const int dr = dst[row0 + d];
+    sdst[d] = dr >= 0 ? (long long)dr * LANES : -1;
+    cur[d] = 0;
+  }
+  for (int q = threadIdx.x; q < DIGIT_WARPS * rmax; q += blockDim.x)
+    wcnt[q] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1;
+  for (long long i0 = 0; i0 < m.nel; i0 += blockDim.x) {
+    const long long i = i0 + threadIdx.x;
+    int d = -1;                    // slack, a digit past rmax or no store
+    if (i < m.nel) {
+      const int g = (int)digit_of(src.p[dp][m.base + i], shift, mask);
+      if (g < rmax && sdst[g] >= 0) d = g;
+    }
+    const unsigned peers = __match_any_sync(FULL_MASK, d);
+    const int rank = __popc(peers & below);
+    if (d >= 0 && rank == 0) wcnt[w * rmax + d] = __popc(peers);
+    __syncthreads();
+    // counts are read and cleared here, offsets go to woff: the next
+    // chunk's counts may land as soon as this chunk's slots are read
+    for (int g = threadIdx.x; g < rmax; g += blockDim.x) {
+      int run = cur[g];
+#pragma unroll
+      for (int ww = 0; ww < DIGIT_WARPS; ++ww) {
+        const int c = wcnt[ww * rmax + g];
+        wcnt[ww * rmax + g] = 0;
+        woff[ww * rmax + g] = run;
+        run += c;
+      }
+      cur[g] = run;
+    }
+    __syncthreads();
+    if (d >= 0) {
+      const int slot = woff[w * rmax + d] + rank;
+      const long long o = sdst[d] + slot;
+      if (slot < scnt[d] && o < out_len) {
+#pragma unroll
+        for (int q = 0; q < NP; ++q) out.p[q][o] = src.p[q][m.base + i];
+      }
+    }
+  }
+  // pads occupy [cnt, cnt + npad) of each run, disjoint from the slots
+  for (int q = threadIdx.x; q < rmax * LANES; q += blockDim.x) {
+    const int d = q / LANES, j = q % LANES;
+    if (sdst[d] < 0) continue;
+    const int c = scnt[d];
+    if (j < ((-c) & (LANES - 1))) {
+      const long long o = sdst[d] + c + j;
+      if (o < out_len) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          out.p[p][o] = p == dp ? padv[row0 + d] : SENT;
       }
     }
   }
@@ -331,6 +464,25 @@ int launch_route(void* const* src, long long src_len, const void* meta,
 }
 
 template <int NP>
+int launch_route_digit(void* const* src, long long src_len,
+                       const void* meta, const void* cnt, const void* dst,
+                       const void* padv, void* const* out, long long out_len,
+                       int ntiles, int pitch, int rmax, int shift,
+                       unsigned mask, int dp, cudaStream_t stream) {
+  const size_t shm = (size_t)rmax * (sizeof(long long) + 2 * sizeof(int))
+                     + 2 * (size_t)DIGIT_WARPS * rmax * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      route_digit_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shm);
+  if (err != cudaSuccess) return (int)err;
+  route_digit_kernel<NP><<<ntiles, DIGIT_THREADS, shm, stream>>>(
+      planes_of<NP>(src), src_len, (const int32_t*)meta, (const int32_t*)cnt,
+      (const int32_t*)dst, (const int32_t*)padv, planes_of<NP>(out), out_len,
+      pitch, rmax, shift, mask, dp);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
 int launch_terminal(void* const* src, long long src_len, const void* btbl,
                     int nb, void* const* out, long long out_len,
                     void* scratch, const void* soff, long long scratch_len,
@@ -376,6 +528,43 @@ int kv4_hist_level(const void* src, long long src_len, const void* meta,
       (const int32_t*)bounds, (int32_t*)hist, pitch, rmax,
       bias_input ? BIAS : 0);
   return (int)cudaGetLastError();
+}
+
+int kv4_hist_digit(const void* src, long long src_len, const void* meta,
+                   void* hist, int ntiles, int pitch, int rmax, int shift,
+                   int bits, void* stream) {
+  const size_t shm = (size_t)rmax * sizeof(int32_t);
+  hist_digit_kernel<<<ntiles, LEVEL_THREADS, shm, (cudaStream_t)stream>>>(
+      (const int32_t*)src, src_len, (const int32_t*)meta, (int32_t*)hist,
+      pitch, rmax, shift, (unsigned)((1ull << bits) - 1));
+  return (int)cudaGetLastError();
+}
+
+int kv4_route_digit(void* s0, void* s1, void* s2, void* s3,
+                    long long src_len, const void* meta, const void* cnt,
+                    const void* dst, const void* padv, void* o0, void* o1,
+                    void* o2, void* o3, long long out_len, int nplanes,
+                    int ntiles, int pitch, int rmax, int shift, int bits,
+                    int digit_plane, void* stream) {
+  void* const src[MAX_PLANES] = {s0, s1, s2, s3};
+  void* const out[MAX_PLANES] = {o0, o1, o2, o3};
+  const unsigned mask = (unsigned)((1ull << bits) - 1);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (nplanes) {
+    case 1: return launch_route_digit<1>(src, src_len, meta, cnt, dst, padv,
+                                         out, out_len, ntiles, pitch, rmax,
+                                         shift, mask, digit_plane, st);
+    case 2: return launch_route_digit<2>(src, src_len, meta, cnt, dst, padv,
+                                         out, out_len, ntiles, pitch, rmax,
+                                         shift, mask, digit_plane, st);
+    case 3: return launch_route_digit<3>(src, src_len, meta, cnt, dst, padv,
+                                         out, out_len, ntiles, pitch, rmax,
+                                         shift, mask, digit_plane, st);
+    case 4: return launch_route_digit<4>(src, src_len, meta, cnt, dst, padv,
+                                         out, out_len, ntiles, pitch, rmax,
+                                         shift, mask, digit_plane, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Plane pointers come as four arguments each (NULL past nplanes).

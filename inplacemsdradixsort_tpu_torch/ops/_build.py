@@ -1,5 +1,6 @@
 """Build the CUDA sources under ``csrc/`` into one ctypes-loaded shared
-library: ``kernels_v4.cu`` (the v4 level, terminal and splice kernels),
+library: ``kernels_v4.cu`` (the v4 level, terminal and splice kernels,
+and the digit modes of the level kernels),
 ``kernels_v5.cu`` (the v5 in-place kernels), ``kernels_v3.cu`` (the v3
 partition level) and ``pallas_kernels.cu`` (the v1 kernels), which share
 ``bitonic.cuh``.
@@ -42,6 +43,9 @@ _SIGNATURES = {
     "kv4_hist_level": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P],
     "kv4_route_level": _PLANES + [_LL, _P, _P, _P, _P, _P] + _PLANES
     + [_LL, _I, _I, _I, _I, _I, _P],
+    "kv4_hist_digit": [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _P],
+    "kv4_route_digit": _PLANES + [_LL, _P, _P, _P, _P] + _PLANES
+    + [_LL, _I, _I, _I, _I, _I, _I, _I, _P],
     "kv4_terminal_write": _PLANES + [_LL, _P, _I] + _PLANES
     + [_LL, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "kv4_splice_runs": _PLANES + [_LL, _P, _I] + _PLANES

@@ -17,9 +17,15 @@ Plane 0 classifies; tuples order lexicographically over planes
 tuples are identical, so an unstable sort still gives one bitwise
 result).
 
-Order inside a route run is not part of the contract: the TPU sorts the
-whole tile because it has no scatter, the CUDA kernel scatters with
-atomics.  ``canonical_runs`` sorts every stored run so that two arenas
+The level kernels have two more modes.  The digit modes (``digit_shift``
+set) classify by a radix digit of the raw word: ``hist_level`` counts by
+it and ``route_level`` partitions stably by it, the LSB engine's passes.
+The accumulate mode (``arenas`` given) routes into arenas that earlier
+calls filled, the chunked sort's routes.
+
+Order inside a range-mode route run is not part of the contract: the TPU
+sorts the whole tile because it has no scatter, the CUDA kernel scatters
+with atomics.  ``canonical_runs`` sorts every stored run so that two arenas
 compare.  The order does reach one thing downstream: level-2 tiles are
 cut from the level-1 arena every ``pitch`` rows, through runs, so the
 per-tile L2 counts (and from them ``rows_c2``, ``start2`` and the number
@@ -48,9 +54,12 @@ MAX_PLANES = 4
 # (``term_tile`` in csrc/kernels_v4.cu)
 TERM_TILE = {1: 16384, 2: 8192, 3: 8192, 4: 4096}
 
-# launches of each kernel since the last reset (plain versions not counted)
-LAUNCHES = {"hist_level": 0, "route_level": 0, "terminal_write": 0,
-            "splice_runs": 0}
+# launches of each kernel since the last reset (plain versions not
+# counted); the modes of the level kernels count apart: ".digit" (the LSB
+# passes) and ".accumulate" (a route into arenas the caller passes)
+LAUNCHES = {"hist_level": 0, "hist_level.digit": 0, "route_level": 0,
+            "route_level.digit": 0, "route_level.accumulate": 0,
+            "terminal_write": 0, "splice_runs": 0}
 
 Planes = Tuple[torch.Tensor, ...]
 
@@ -176,6 +185,26 @@ def _tile_keys(src, meta, ntiles, pitch, bias_input):
     return parent, (k ^ BIAS if bias_input else k), live
 
 
+def _check_digit(digit_shift, digit_bits, bias_input):
+    """Validate a digit mode: a shift inside the 32-bit word, 1-16 bits,
+    and raw (unbiased) words."""
+    if digit_shift is None:
+        return
+    if not 0 <= digit_shift < 32 or not 1 <= digit_bits <= 16:
+        raise ValueError(f"digit_shift={digit_shift}, digit_bits="
+                         f"{digit_bits}: need 0 <= shift < 32 and 1-16 bits")
+    if bias_input:
+        raise ValueError("digit mode reads raw words: bias_input must be "
+                         "False")
+
+
+def _digits(k, shift, bits):
+    """(raw >> shift) & (2^bits - 1) of raw uint32 words held in int32,
+    shifted logically (on int64, so that no sign bit leaks into a digit
+    whose shift + bits passes 32)."""
+    return ((k.long() & 0xFFFFFFFF) >> shift) & ((1 << bits) - 1)
+
+
 def _classify(bounds, parent, k, rmax):
     """First range d with k <= bound[parent, d] (rmax if none)."""
     b = bounds.reshape(-1, rmax)[parent].contiguous()
@@ -183,9 +212,12 @@ def _classify(bounds, parent, k, rmax):
 
 
 def hist_level_ref(src, meta, bounds, ntiles, pitch, rmax,
-                   bias_input=False):
+                   bias_input=False, digit_shift=None, digit_bits=0):
     parent, k, live = _tile_keys(src, meta, ntiles, pitch, bias_input)
-    d = _classify(bounds, parent, k, rmax)
+    if digit_shift is None:
+        d = _classify(bounds, parent, k, rmax)
+    else:
+        d = _digits(k, digit_shift, digit_bits)
     t = torch.arange(ntiles, device=src.device)[:, None]
     ok = live & (d < rmax)
     flat = (t * rmax + d)[ok]
@@ -194,22 +226,29 @@ def hist_level_ref(src, meta, bounds, ntiles, pitch, rmax,
 
 
 def route_level_ref(srcs, meta, bounds, cnt, dst, padv, dst_rows, ntiles,
-                    pitch, rmax, bias_input=False):
+                    pitch, rmax, bias_input=False, digit_shift=None,
+                    digit_bits=0, digit_plane=0, arenas=None):
     srcs = tuple(srcs)
     dev = srcs[0].device
     parent, idx, live = _tile_index(srcs[0], meta, ntiles, pitch)
     vals = [s.reshape(-1)[idx] for s in srcs]
     if bias_input:
         vals = [v ^ BIAS for v in vals]
-    d = _classify(bounds, parent, vals[0], rmax)
+    digit = digit_shift is not None
+    dp = digit_plane if digit else 0
+    if digit:
+        d = _digits(vals[dp], digit_shift, digit_bits)
+    else:
+        d = _classify(bounds, parent, vals[0], rmax)
     dst_l = dst.reshape(ntiles, rmax).long()
     cnt_l = cnt.reshape(-1).long()
     t = torch.arange(ntiles, device=dev)[:, None]
-    # keys past every bound (d == rmax) belong to no run
+    # keys past every bound or digit (d >= rmax) belong to no run
     keep = live & (d < rmax)
     d.clamp_(max=rmax - 1)
     keep &= torch.gather(dst_l, 1, d) >= 0
-    # phantom pads: (-cnt) % 128 copies of (padv, SENT, ...) per stored run
+    # phantom pads: (-cnt) % 128 copies of (padv in plane dp, SENT in the
+    # others) per stored run
     dv = dst_l.reshape(-1)
     lane = torch.arange(LANES, device=dev)
     npad = (-cnt_l) % LANES
@@ -218,25 +257,29 @@ def route_level_ref(srcs, meta, bounds, cnt, dst, padv, dst_rows, ntiles,
         -1, LANES)[pm]
     pad_val = padv.reshape(-1, 1).expand(-1, LANES)[pm]
     run = torch.cat([(t * rmax + d)[keep], pad_run])
-    vals = [torch.cat([v[keep], pad_val if p == 0
+    vals = [torch.cat([v[keep], pad_val if p == dp
                        else torch.full_like(pad_val, SENT)])
             for p, v in enumerate(vals)]
-    # every run's tuples sorted (pads sorted in): the layout the
-    # reference's sorted tile leaves, so the CPU pipeline reproduces its
-    # L2 tiling bit for bit
-    perm = _lex_order([run] + vals)
+    if digit:
+        # stable by run: each run's tuples in input order, its pads last
+        perm = torch.sort(run, stable=True).indices
+    else:
+        # every run's tuples sorted (pads sorted in): the layout the
+        # reference's sorted tile leaves, so the CPU pipeline reproduces
+        # its L2 tiling bit for bit
+        perm = _lex_order([run] + vals)
     run = run[perm]
     counts = torch.bincount(run, minlength=ntiles * rmax)
     first = torch.cumsum(counts, 0) - counts
     slot = torch.arange(run.numel(), device=dev) - first[run]
     ok = slot < (cnt_l + npad)[run]
     pos = (dv[run] * LANES + slot)[ok]
-    outs = []
-    for v in vals:
-        out = torch.empty(dst_rows * LANES, dtype=torch.int32, device=dev)
-        out[pos] = v[perm][ok]
-        outs.append(out.view(dst_rows, LANES))
-    return tuple(outs)
+    if arenas is None:
+        arenas = tuple(torch.empty((dst_rows, LANES), dtype=torch.int32,
+                                   device=dev) for _ in vals)
+    for a, v in zip(arenas, vals):
+        a.view(-1)[pos] = v[perm][ok]
+    return tuple(arenas)
 
 
 def _spans(starts, lens):
@@ -314,6 +357,18 @@ def splice_runs_ref(srcs, btbl, out_n, max_occ, unbias_output=False):
     return tuple(outs)
 
 
+def run_rows(dst, cnt):
+    """The arena rows of every stored run (``dst >= 0``; a run spans
+    ceil(cnt/128) rows from row ``dst``), run after run, and the run
+    each row belongs to (int64 tensors)."""
+    dv = dst.reshape(-1).long()
+    nrows = (cnt.reshape(-1).long() + LANES - 1) // LANES
+    st = (dv >= 0) & (nrows > 0)
+    lens = nrows[st]
+    return _spans(dv[st], lens), torch.repeat_interleave(
+        torch.arange(lens.numel(), device=lens.device), lens)
+
+
 def canonical_runs(arenas, dst, cnt, rows):
     """Arena rows [0, rows) of every plane with every stored run
     (``dst >= 0``; a run spans ceil(cnt/128) rows from row ``dst``)
@@ -322,13 +377,9 @@ def canonical_runs(arenas, dst, cnt, rows):
     their canonical forms are equal."""
     flats = [a.reshape(-1)[: rows * LANES] for a in arenas]
     dev = flats[0].device
-    dv = dst.reshape(-1).long()
-    nrows = (cnt.reshape(-1).long() + LANES - 1) // LANES
-    st = (dv >= 0) & (nrows > 0)
     row_run = torch.full((rows,), -1, dtype=torch.long, device=dev)
-    lens = nrows[st]
-    row_run[_spans(dv[st], lens)] = torch.repeat_interleave(
-        torch.arange(lens.numel(), device=dev), lens)
+    rix, rid = run_rows(dst, cnt)
+    row_run[rix] = rid
     elem_run = row_run.repeat_interleave(LANES)
     pos = torch.nonzero(elem_run >= 0).squeeze(1)
     run = elem_run[pos]
@@ -347,7 +398,8 @@ def canonical_runs(arenas, dst, cnt, rows):
 
 def hist_level(src: torch.Tensor, meta: torch.Tensor, bounds: torch.Tensor,
                ntiles: int, pitch: int, rmax: int,
-               bias_input: bool = False) -> torch.Tensor:
+               bias_input: bool = False, digit_shift: Optional[int] = None,
+               digit_bits: int = 0) -> torch.Tensor:
     """Exact per-(tile, range) counts, (ntiles, rmax) int32.
 
     Tile t is ``meta[3t:3t+3] = (parent, src_row, nelems)``: its elements
@@ -355,22 +407,37 @@ def hist_level(src: torch.Tensor, meta: torch.Tensor, bounds: torch.Tensor,
     of the parent holds the keys k with bound[d-1] < k <= bound[d]
     (``bounds`` is (nparents*rmax,), non-decreasing per parent, biased).
 
-    Replaces ``kernels_v4.py:77-204`` (``_hist_kernel``, digit mode not
-    ported).  On the H100 it is bound by reading the keys once from device
-    memory (4 bytes a key) and by shared-memory atomics under skew.
-    Design: one block per tile, binary search over the parent's bounds in
-    shared memory, shared-memory counters; slack lanes are skipped by
-    index, since SENT equals a real biased 0xFFFFFFFF.  CUDA rather than
-    Triton: the binary search and the counters live in shared memory
-    with shared atomics, which Triton's block model does not express,
-    and the kernel shares ``route_level``'s tile layout and launcher.
+    Digit mode (``digit_shift`` set; the LSB engine's passes): the bin of
+    an element is the digit ``(raw >> digit_shift) & (2^digit_bits - 1)``
+    of its raw, unbiased word, shifted logically; digits >= rmax and
+    slack lanes count nowhere, and ``bounds`` is not read (the reference
+    passes ``arange(rmax)``).
+
+    Replaces ``kernels_v4.py:77-204`` (``_hist_kernel``, both modes).  On
+    the H100 it is bound by reading the keys once from device memory (4
+    bytes a key) and by shared-memory atomics under skew.  Design: one
+    block per tile, shared-memory counters; range mode finds the range by
+    binary search over the parent's bounds in shared memory, and skips
+    slack lanes by index, since SENT equals a real biased 0xFFFFFFFF;
+    digit mode has its own kernel (``hist_digit_kernel``), in which the
+    lanes of a warp that share a digit add once (``__match_any_sync``),
+    so that few distinct digits do not serialise the atomics.  CUDA
+    rather than Triton: the binary search and the counters live in
+    shared memory with shared atomics and warp match intrinsics, which
+    Triton's block model does not express, and the kernel shares
+    ``route_level``'s tile layout and launcher.
     """
     _check_level(src, meta, bounds, ntiles, rmax)
+    _check_digit(digit_shift, digit_bits, bias_input)
     if src.device.type == "cpu":
         return hist_level_ref(src, meta, bounds, ntiles, pitch, rmax,
-                              bias_input)
+                              bias_input, digit_shift, digit_bits)
     hist = torch.empty((ntiles, rmax), dtype=torch.int32, device=src.device)
-    if ntiles:
+    if ntiles and digit_shift is not None:
+        _launch("hist_level.digit", "kv4_hist_digit", src.device,
+                _p(src), src.numel(), _p(meta), _p(hist), ntiles, pitch,
+                rmax, digit_shift, digit_bits)
+    elif ntiles:
         _launch("hist_level", "kv4_hist_level", src.device,
                 _p(src), src.numel(), _p(meta), _p(bounds), _p(hist),
                 ntiles, pitch, rmax, int(bias_input))
@@ -380,7 +447,10 @@ def hist_level(src: torch.Tensor, meta: torch.Tensor, bounds: torch.Tensor,
 def route_level(srcs: Sequence[torch.Tensor], meta: torch.Tensor,
                 bounds: torch.Tensor, cnt: torch.Tensor, dst: torch.Tensor,
                 padv: torch.Tensor, dst_rows: int, ntiles: int, pitch: int,
-                rmax: int, bias_input: bool = False) -> Planes:
+                rmax: int, bias_input: bool = False,
+                digit_shift: Optional[int] = None, digit_bits: int = 0,
+                digit_plane: int = 0,
+                arenas: Optional[Sequence[torch.Tensor]] = None) -> Planes:
     """One partition level of 1-4 planes to exact precomputed
     destinations.
 
@@ -394,33 +464,84 @@ def route_level(srcs: Sequence[torch.Tensor], meta: torch.Tensor,
     which must have produced ``cnt``.  The kernel leaves the order inside
     a run undefined; the plain version sorts each run by whole tuples.
 
-    Replaces ``kernels_v4.py:209-499`` (``_route_body``; accumulate and
-    digit modes not ported).  The TPU finds runs by sorting the padded
-    tile, because it has no scatter; the port classifies by the same
-    bounds as ``hist_level`` and scatters.  On the H100 it is bound by one
-    read and one scattered write of every plane of every element.
-    Design: one block per tile; each element claims a slot of its run
-    with a shared-memory ``atomicAdd`` on plane 0's range (order inside a
-    run is therefore not defined) and stores every plane at that slot,
-    then the pads fill the run's tail.  The kernel is templated on the
-    plane count, so a keys-only launch does no per-plane work.  Stores
-    are element-exact (the TPU's 64-row chunk stores overshoot and rely
-    on an in-order grid) and addresses are 64-bit.  CUDA rather than
-    Triton: each element's slot comes from a shared-memory atomic and
-    the stores are a data-dependent scatter, neither of which Triton's
-    block model expresses.
+    Stable digit mode (``digit_shift`` set; the LSB passes): plane
+    ``digit_plane`` classifies, by the digit of ``hist_level``'s digit
+    mode, and ``bounds`` is not read.  Each run holds its real tuples in
+    input order, then its pad tuples, whose plane ``digit_plane`` holds
+    ``padv[t, d]`` (a word whose digit is d) and every other plane SENT.
+    The contract is fully determined: kernel, plain version and the
+    reference agree bit for bit on every run row.
+
+    Accumulate mode (``arenas`` given, one (dst_rows, 128) int32 tensor
+    per plane; the chunked sort's routes): the call stores into those
+    tensors, in place, and returns them.  It writes only the rows of its
+    own runs and allocates nothing, so k calls fill one shared arena.
+
+    Replaces ``kernels_v4.py:209-499`` (``_route_body``, every mode; its
+    profiling switch ``nosort`` is not ported).  The TPU finds runs by
+    sorting the padded tile, because it has no scatter: by whole tuples
+    in range mode, by a (digit, arrival rank) composite in digit mode.
+    On the H100 every mode is bound by one read and one scattered write
+    of every plane of every element.
+
+    Range mode design: one block per tile; each element claims a slot of
+    its run with a shared-memory ``atomicAdd`` on plane 0's range (order
+    inside a run is therefore not defined) and stores every plane at
+    that slot, then the pads fill the run's tail.  Accumulate mode is the
+    same kernel storing into the caller's arenas: since its stores are
+    element-exact, rows outside its runs keep what earlier calls wrote.
+
+    Digit mode design (``route_digit_kernel``): one block of 512 threads
+    per tile walks the tile in input order, a chunk of 512 elements at a
+    time; an element's rank among the earlier lanes of its warp with its
+    digit is ``__popc(peers & lanes below)``, with ``peers`` from
+    ``__match_any_sync``; the warps' per-digit totals (16 x 2^bits
+    counters in shared memory) are scanned in warp order per digit from
+    a running cursor that carries across chunks, so the slot of every
+    element is the count of earlier elements of its tile with its digit.
+    At 8-bit digits that is 256 counters a warp and two block barriers
+    a chunk.
+
+    All kernels are templated on the plane count, so a keys-only launch
+    does no per-plane work; stores are element-exact (the TPU's 64-row
+    chunk stores overshoot and rely on an in-order grid) and addresses
+    are 64-bit, so an arena may pass 2^31 elements.  CUDA rather than
+    Triton: each element's slot comes from a shared-memory atomic, or
+    from warp match intrinsics and an in-order scan across the warps of
+    a block, and the stores are a data-dependent scatter; Triton's block
+    model expresses none of these.
     """
     srcs = _check_planes("srcs", srcs, meta.device)
     tables = (("cnt", cnt), ("dst", dst), ("padv", padv))
     _check_level(srcs[0], meta, bounds, ntiles, rmax, tables)
+    _check_digit(digit_shift, digit_bits, bias_input)
+    if not 0 <= digit_plane < len(srcs):
+        raise ValueError(f"digit_plane={digit_plane} outside [0, "
+                         f"{len(srcs)})")
     dev = srcs[0].device
+    if arenas is not None:
+        arenas = _check_planes("arenas", arenas, dev)
+        if len(arenas) != len(srcs) or any(
+                a.numel() != dst_rows * LANES for a in arenas):
+            raise ValueError(f"arenas: need {len(srcs)} tensors of "
+                             f"{dst_rows} x {LANES} elements")
     if dev.type == "cpu":
         return route_level_ref(srcs, meta, bounds, cnt, dst, padv, dst_rows,
-                               ntiles, pitch, rmax, bias_input)
-    outs = tuple(torch.empty((dst_rows, LANES), dtype=torch.int32,
-                             device=dev) for _ in srcs)
-    if ntiles:
-        _launch("route_level", "kv4_route_level", dev,
+                               ntiles, pitch, rmax, bias_input, digit_shift,
+                               digit_bits, digit_plane, arenas)
+    outs = arenas if arenas is not None else tuple(
+        torch.empty((dst_rows, LANES), dtype=torch.int32, device=dev)
+        for _ in srcs)
+    if not ntiles:
+        return outs
+    if digit_shift is not None:
+        _launch("route_level.digit", "kv4_route_digit", dev,
+                *_pp(srcs), srcs[0].numel(), _p(meta), _p(cnt), _p(dst),
+                _p(padv), *_pp(outs), outs[0].numel(), len(srcs), ntiles,
+                pitch, rmax, digit_shift, digit_bits, digit_plane)
+    else:
+        _launch("route_level" if arenas is None
+                else "route_level.accumulate", "kv4_route_level", dev,
                 *_pp(srcs), srcs[0].numel(), _p(meta), _p(bounds), _p(cnt),
                 _p(dst), _p(padv), *_pp(outs), outs[0].numel(), len(srcs),
                 ntiles, pitch, rmax, int(bias_input))

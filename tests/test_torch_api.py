@@ -26,6 +26,7 @@ from inplacemsdradixsort_tpu_torch.ops import engine_v4 as te
 from inplacemsdradixsort_tpu_torch.ops import engine_v5 as te5
 from inplacemsdradixsort_tpu_torch.ops import keycodec as tkc
 from inplacemsdradixsort_tpu_torch.utils.checking import check_permutation
+from torch_chunked_cases import check_sort_external_matches_jax
 from torch_v3_cases import (check_v3_plan_and_pipeline_match_jax,
                             check_v3_sort_against_numpy)
 
@@ -334,7 +335,8 @@ def test_engine_pallas_routing(monkeypatch):
     (the reference would keep their low words, ROADMAP.md C11, C13).
     engine="xla" sorts every key type stably by key only, as the
     reference's xla_engine (ROADMAP.md C12).  Then the v3 engine against
-    the JAX one and against numpy (``torch_v3_cases``)."""
+    the JAX one and against numpy (``torch_v3_cases``), and the chunked
+    sort against the JAX one and numpy (``torch_chunked_cases``)."""
     from inplacemsdradixsort_tpu_torch.ops import engine_v3 as te3
     from inplacemsdradixsort_tpu_torch.ops import pallas_engine as tpe
     ran = []
@@ -353,6 +355,7 @@ def test_engine_pallas_routing(monkeypatch):
     monkeypatch.undo()
     check_v3_plan_and_pipeline_match_jax()
     check_v3_sort_against_numpy()
+    check_sort_external_matches_jax()
 
 
 V3 = SortConfig(engine="v3")

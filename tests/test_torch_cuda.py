@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from inplacemsdradixsort_tpu_torch import SortConfig, sort, sort_with_indices
-from inplacemsdradixsort_tpu_torch.ops import deep, engine_v4, engine_v5
+from inplacemsdradixsort_tpu_torch.ops import (chunked, deep, engine_v4,
+                                               engine_v5)
 from inplacemsdradixsort_tpu_torch.ops import kernels_v3 as kv3
 from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as kv4
 from inplacemsdradixsort_tpu_torch.ops import kernels_v5 as kv5
@@ -55,9 +56,11 @@ def test_sort_tiny_geometry_on_card(cuda, dist, geom):
     res = sort(torch.from_numpy(x).to(cuda),
                config=SortConfig(engine="v4", **geom))
     np.testing.assert_array_equal(res.keys.cpu().numpy(), np.sort(x))
-    # the deep tier's splice_runs is the only kernel a keys-only sort skips
-    assert all(v for k, v in kv4.LAUNCHES.items() if k != "splice_runs"), \
-        kv4.LAUNCHES
+    # the deep tier's splice_runs is the only range-mode kernel a
+    # keys-only sort skips (the ".digit" and ".accumulate" modes are the
+    # LSB and chunked sorts')
+    assert all(v for k, v in kv4.LAUNCHES.items()
+               if k != "splice_runs" and "." not in k), kv4.LAUNCHES
 
 
 @pytest.mark.parametrize("dist", ["uniform", "zipf", "sorted", "dup8"])
@@ -88,15 +91,19 @@ def _clone(x):
     return x
 
 
+KV4_WRAPPERS = ("hist_level", "route_level", "terminal_write", "splice_runs")
+
+
 def _record(fn):
     """Run ``fn`` with every kernel wrapper recording its inputs; return
     (the wrappers, the recorded calls)."""
     calls = []
-    wrappers = {k: getattr(kv4, k) for k in kv4.LAUNCHES}
+    wrappers = {k: getattr(kv4, k) for k in KV4_WRAPPERS}
 
     def rec(name):
         def run(*a, **kw):
-            calls.append((name, [_clone(t) for t in a], kw))
+            calls.append((name, [_clone(t) for t in a],
+                          {k: _clone(v) for k, v in kw.items()}))
             return wrappers[name](*a, **kw)
         return run
     for k in wrappers:
@@ -117,10 +124,21 @@ def _replay(wrappers, calls):
             got = (wrappers[name](*a, **kw),)
             want = (kv4.hist_level_ref(*a, **kw),)
         elif name == "route_level":
-            got = kv4.canonical_runs(wrappers[name](*a, **kw), a[4], a[3],
-                                     a[6])
-            want = kv4.canonical_runs(kv4.route_level_ref(*a, **kw), a[4],
-                                      a[3], a[6])
+            before = kw.get("arenas")
+            got = wrappers[name](*a, **dict(kw, arenas=_clone(before)))
+            want = kv4.route_level_ref(*a, **dict(kw, arenas=_clone(before)))
+            rix, _ = kv4.run_rows(a[4], a[3])
+            if before is not None:      # accumulate: other rows unchanged
+                keep = torch.ones(a[6], dtype=torch.bool, device=rix.device)
+                keep[rix] = False
+                assert all(torch.equal(g[keep], b[keep])
+                           for g, b in zip(got, before)), (name, kw.keys())
+            if kw.get("digit_shift") is not None:
+                # stable digit mode: every run row bit for bit
+                got, want = (tuple(t[rix] for t in x) for x in (got, want))
+            else:
+                got, want = (kv4.canonical_runs(x, a[4], a[3], a[6])
+                             for x in (got, want))
         elif name == "terminal_write":
             src, btbl, out, cap = a
             got = wrappers[name](src, btbl, _clone(out), cap, **kw)
@@ -136,13 +154,16 @@ def _replay(wrappers, calls):
 def test_kernels_match_plain_versions(cuda):
     """Record one tiny-geometry sort's kernel calls; rerun each kernel and
     its plain version on the same CUDA tensors.  Then the v3 kernels
-    (``_check_v3_on_card``)."""
+    (``_check_v3_on_card``), the LSB engine (``_check_lsb_on_card``) and
+    the chunked sort (``_check_chunked_on_card``)."""
     x = torch.from_numpy(_keys(70_000, 2).view(np.int32)).to(cuda)
     wrappers, calls = _record(
         lambda: engine_v4.sort_v4(x, (), SortConfig(**TINY)))
     assert {c[0] for c in calls} == set(wrappers) - {"splice_runs"}
     _replay(wrappers, calls)
     _check_v3_on_card(cuda)
+    _check_lsb_on_card(cuda)
+    _check_chunked_on_card(cuda)
 
 
 @pytest.mark.parametrize("nvals", [1, 2, 3])
@@ -673,3 +694,85 @@ def _check_v3_on_card(cuda):
     res = sort(torch.from_numpy(k64).to(cuda), config=SortConfig(
         engine="v3"))
     np.testing.assert_array_equal(res.keys.cpu().numpy(), np.sort(k64))
+
+
+LSB_TINY = dict(v3_sort_rows=32, lsb_digit_bits=4, min_engine_n=512)
+
+
+def _check_lsb_on_card(cuda):
+    """api.sort(engine="lsb") on the card: every digit-mode hist_level,
+    route_level (bit for bit on every run row) and splice_runs call
+    equals its plain version, at the reference tests' geometry (4-bit
+    digits), at 6-bit digits (a last pass at shift 30, keys >= 2^31) and
+    at the default one; the results equal numpy's stable sort by key,
+    rids in input order among equal keys."""
+    rng = np.random.default_rng(41)
+    n = (1 << 21) + 77
+    perm = rng.permutation(n).astype(np.uint32)
+    few = rng.integers(0, 3, n, dtype=np.uint32) * 0x01010101
+    cases = [(LSB_TINY, _keys(70_000, 5), None),
+             (LSB_TINY, few[:70_000], perm[:70_000]),
+             (dict(v3_sort_rows=128, lsb_digit_bits=6),
+              rng.integers(2**31, 2**32, n, dtype=np.uint32), None),
+             ({}, few, perm),
+             ({}, rng.integers(0, 2**64, n, dtype=np.uint64),
+              rng.integers(0, 2**64, n, dtype=np.uint64)),
+             ({}, rng.standard_normal(n).astype(np.float32), None),
+             ({}, rng.integers(-2**31, 2**31, n).astype(np.int32), perm)]
+    for geom, x, rid in cases:
+        box = {}
+        kv4.reset_launches()
+        wrappers, calls = _record(lambda: box.update(r=sort(
+            torch.from_numpy(x).to(cuda),
+            None if rid is None else torch.from_numpy(rid).to(cuda),
+            config=SortConfig(engine="lsb", **geom))))
+        assert {c[0] for c in calls} == {"hist_level", "route_level",
+                                         "splice_runs"}, x.dtype
+        assert kv4.LAUNCHES["hist_level.digit"] and \
+            kv4.LAUNCHES["route_level.digit"], kv4.LAUNCHES
+        _replay(wrappers, calls)
+        order = np.argsort(_f32_key(x) if x.dtype == np.float32 else x,
+                           kind="stable")
+        np.testing.assert_array_equal(
+            box["r"].keys.cpu().numpy().view(x.dtype), x[order])
+        if rid is not None:
+            np.testing.assert_array_equal(box["r"].rids.cpu().numpy(),
+                                          rid[order])
+
+
+def _f32_key(x):
+    """float32 in IEEE total order (-0 < +0) as uint32."""
+    u = x.view(np.uint32)
+    return np.where(u >> 31, ~u, u | np.uint32(0x80000000))
+
+
+def _check_chunked_on_card(cuda):
+    """sort_external on the card: every hist_level and accumulate
+    route_level call equals its plain version (arenas through
+    canonical_runs on the call's runs, every other row unchanged), and
+    the concatenated pieces equal numpy, keys only and (key, rid) pairs
+    lexicographic; the local v4 sorts run at the default geometry."""
+    rng = np.random.default_rng(43)
+    n = (1 << 22) + 5
+    x = rng.integers(0, 2**32, n, dtype=np.uint32)
+    x[rng.random(n) < 0.2] = 12345
+    rid = rng.integers(0, 2**32, n, dtype=np.uint32)
+    for planes in ((x,), (x, rid)):
+        splits = np.array_split(np.arange(n), 3)
+
+        def chunk_fn(i):
+            return tuple(torch.from_numpy(p[splits[i]]).to(cuda)
+                         for p in planes)
+        kv4.reset_launches()
+        box = {}
+        wrappers, calls = _record(lambda: box.update(p=list(
+            chunked.sort_external(chunk_fn, 3, n, SortConfig(),
+                                  nranges=6))))
+        assert kv4.LAUNCHES["route_level.accumulate"] == 3, kv4.LAUNCHES
+        _replay(wrappers, calls)
+        outs = [np.concatenate([p[j].cpu().numpy() for p in box["p"]])
+                for j in range(len(planes))]
+        order = (np.argsort(x, kind="stable") if len(planes) == 1
+                 else np.lexsort((rid, x)))
+        for o, p in zip(outs, planes):
+            np.testing.assert_array_equal(o, p[order])

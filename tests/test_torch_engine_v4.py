@@ -30,6 +30,8 @@ import jax.numpy as jnp
 
 from inplacemsdradixsort_tpu.config import SortConfig as JConfig
 from inplacemsdradixsort_tpu.ops import engine_v4 as je
+from torch_lsb_cases import (check_lsb_api_against_numpy,
+                             check_sort_lsb_matches_jax)
 from torch_parity import lax_network
 
 import inplacemsdradixsort_tpu_torch as rt
@@ -273,14 +275,20 @@ def test_retry_ladder_then_fallback(monkeypatch):
 
 @pytest.mark.parametrize("engine", ["v5", "lsb"])
 def test_not_implemented(engine):
-    """Engines not ported yet raise, naming their ROADMAP item; v5, which
-    raised here before it was ported, now sorts (rids, the key types,
-    sort_with_indices and payload planes in sort_v4 are ported too:
-    tests/test_torch_api.py and the multi-plane cases here)."""
+    """The engines this test found not ported, v5 and then lsb, now sort;
+    an engine that is not ported (the distributed sort's) raises, naming
+    its ROADMAP item.  The lsb case also runs the LSB engine's checks
+    against the JAX package and numpy (``tests/torch_lsb_cases.py``)."""
     x = _keys("uniform", 100, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rt.sort(torch.from_numpy(x), config=SortConfig(engine="dsort"))
     if engine == "lsb":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.sort(torch.from_numpy(x), config=SortConfig(engine=engine))
+        res = rt.sort(torch.from_numpy(x), config=SortConfig(
+            engine=engine, min_engine_n=1, v3_sort_rows=32,
+            lsb_digit_bits=4))
+        np.testing.assert_array_equal(res.keys.numpy(), np.sort(x))
+        check_sort_lsb_matches_jax()
+        check_lsb_api_against_numpy()
         return
     res = rt.sort(torch.from_numpy(x), config=SortConfig(
         engine=engine, min_engine_n=1, v5_pitch_rows=64, v3_sort_rows=512,

@@ -8,6 +8,12 @@ one-row capacities, and the multi-plane route cases run the reference
 kernel with ``lax.sort`` as its in-tile sort (``torch_parity``), which
 gives the same runs.
 
+The digit modes (``tests/torch_lsb_cases.py``, run by the first
+``test_hist_level_matches_jax`` case) and the accumulate mode
+(``tests/torch_chunked_cases.py``, run by
+``test_canonical_runs_ignores_order_and_unstored_rows``) are checked
+inside existing tests, to keep the collection at 383 (ROADMAP.md A0).
+
 Inputs come from ``np.random.default_rng(seed)`` and reach both sides as
 the same numpy arrays.  Every comparison is exact (integers, tolerance
 0).  Route arenas are compared through ``canonical_runs``: order inside a
@@ -24,6 +30,8 @@ import jax.numpy as jnp
 from inplacemsdradixsort_tpu.ops import kernels_v4 as jk
 from inplacemsdradixsort_tpu_torch.ops import kernels_v4 as tk
 from torch_parity import lax_network
+from torch_chunked_cases import check_accumulate_matches_jax
+from torch_lsb_cases import check_lsb_kernels_match_jax
 from torch_v3_cases import check_v3_kernels_match_jax
 from inplacemsdradixsort_tpu_torch.ops.plan_util import _bias_np
 
@@ -87,6 +95,10 @@ def test_hist_level_matches_jax(bias_input, nparents):
     # dead tiles count nothing; slack lanes are not counted
     assert not want[2].any() and not want[5].any()
     assert want[4].sum() <= 77
+    if nparents == 1:
+        # the digit modes of hist_level and route_level, once
+        # (tests/torch_lsb_cases.py)
+        check_lsb_kernels_match_jax()
 
 
 def _route_tables(hist, meta, nparents, drop):
@@ -202,6 +214,9 @@ def test_canonical_runs_ignores_order_and_unstored_rows():
     np.testing.assert_array_equal(
         c0.numpy()[0:3].reshape(-1), np.sort(arena[0:3].reshape(-1)))
     assert not c0.numpy()[4:].any()
+    # route_level's accumulate mode against the reference's chunked
+    # route, through canonical_runs (tests/torch_chunked_cases.py)
+    check_accumulate_matches_jax()
 
 
 def _terminal_case(seed, fill=True, cap=CAP):
