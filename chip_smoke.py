@@ -88,23 +88,24 @@ equal to the kernel's (the library time; the port never calls it):
 ``index_select`` for ``splice_runs``, ``block_permute`` (W's blocks, on
 the pre-launch copy), ``distribute`` and ``compact`` (gather indices
 built outside the timed call); ``torch.sort`` for keys-only
-``tile_sort`` launches (by row of tiles) and single-bucket
-``ragged_sort`` launches (``sort_vmem``) and keys-only
+``tile_sort`` launches (by row of tiles) and keys-only ``ragged_sort``,
 ``terminal_sort_write`` and ``terminal_write`` launches (the buckets
-gathered, outside the timed call, into rows of cap_rows*128 with SENT
-after each bucket, then sorted by row); ``torch.bincount`` of
-tile * 2^bits + digit for ``hist_level.digit``; a stable ``torch.sort``
-of (tile, digit) keys for ``route_level.digit`` (the order of the
-partition; the planes gathered by it must equal the runs' real
-prefixes).  Where the library call
+gathered, outside the timed call, into rows of class_rows*128 or
+cap_rows*128 with SENT after each bucket's pad, then sorted by row);
+``torch.bincount`` of tile * 2^bits + digit for ``hist_level.digit``; a
+stable ``torch.sort`` of (tile, digit) keys for ``route_level.digit``
+(the order of the partition; the planes gathered by it must equal the
+runs' real prefixes).  Where the library call
 covers only some launches, the JSON record gives their count
 (``library_calls``) and the kernel's time on them
 (``library_kernel_ms``) beside ``library_ms``.  Then: the port's peak memory
 in a second sort, its time against what a user would otherwise run
 (``torch.sort`` on the keys; stable, plus a gather of the rids), and
 each kernel's time inside one 2^28 sort, keys only and pairs (v4, v1,
-v3 and LSB), and one 2^30 v5 sort of pairs; the chunked sorts' time,
-phase split and peak memory in a second, unchecked run.
+v3 and LSB), and one 2^30 v5 sort of pairs; the host ms of the check of
+the largest tables v1 hands ``distribute`` at 2^28 keys, on the host as
+the engine passes them and on the card; the chunked sorts' time, phase
+split and peak memory in a second, unchecked run.
 
 Per-call check lines go to ``chiprun_out/chip_smoke_calls.log``; stdout
 has one line per (input, kernel, plane count).  Any failure raises
@@ -997,19 +998,27 @@ def library_distribute(m, a, out, _):
 
 
 def library_ragged(m, a, out, before):
-    """Single-bucket launches (``sort_vmem``): ``torch.sort`` of the
-    bucket, its tail past the pad masked to SENT first (not timed); it
-    must equal the kernel's bucket.  Several buckets: None (a gather of
-    the buckets would come first)."""
-    if a["starts_row"].numel() != 1 or a["vals"] is not None:
+    """Keys-only launches: ``torch.sort(x, dim=1)`` of the live buckets
+    gathered (not timed) from the pre-launch arena into rows of
+    class_rows*128 elements, each tail past its pad masked to SENT, as
+    ``library_terminal`` does; its values must equal the kernel's
+    buckets.  Pairs: None (no one call sorts by (key, val))."""
+    if a["vals"] is not None:
         return None
-    e = a["class_rows"] * LANES
-    s0 = int(a["starts_row"][0].item()) * LANES
-    k = before["keys"].view(-1)[s0:s0 + e]
-    k = torch.where(torch.arange(e, device=k.device)
-                    < a["pad_elems"][0].long(), k, m.kv4.SENT)
-    lib, t = _plain(torch.sort, k)
-    assert torch.equal(lib.values, out[0].view(-1)[s0:s0 + e]), \
+    pads = a["pad_elems"].long()
+    live = pads > 0
+    if not bool(live.any()):
+        return None
+    cr = a["class_rows"]
+    rows = a["starts_row"].long()[live][:, None] \
+        + torch.arange(cr, device=pads.device)[None, :]
+    e = torch.arange(cr * LANES, device=pads.device)[None, :]
+    mat = before["keys"][rows].view(-1, cr * LANES)
+    mat = torch.where(e < pads[live][:, None], mat, m.kv4.SENT)
+    lib, t = _plain(torch.sort, mat, 1)
+    del mat
+    assert torch.equal(lib.values,
+                       out[0][rows].view(-1, cr * LANES)), \
         "bucket torch.sort differs"
     return t
 
@@ -1215,7 +1224,7 @@ class Checker:
                        "block_permute": "w",
                        "route_level.accumulate": "arenas"}.get(name)
             if KERNELS[name][0] == "pk":
-                # sort_vmem passes its tables on the host
+                # msd_sort and sort_vmem pass their tables on the host
                 a = {k: v.to(a["keys"].device) if torch.is_tensor(v) else v
                      for k, v in a.items()}
             before = _clone(tuple(a[inplace])) if inplace else None
@@ -1343,7 +1352,7 @@ def main():
 
     # ------------------------------------------------------------ build
     t0 = time.perf_counter()
-    print(f"build: {_build.build(verbose=True).name}")   # one nvcc
+    print(f"build: {_build.build(verbose=True).name}")   # nvcc per source
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     cfg = SortConfig()
@@ -1425,6 +1434,80 @@ def main():
                   f"{sum(each):.3f} ms "
                   f"({', '.join(f'{e:.3f}' for e in each)})")
         print(f"main {label} one sort: {total * 1e3:.3f} ms")
+
+    def table_checks(label, fn):
+        """Host ms of the check of the largest ``distribute`` call's tables
+        in one run of ``fn``: the wrapper's host check (the engine's
+        path) alone and with the upload of its packed tables, the check
+        of the same tables on the card (one sync) alone and with their
+        upload, and an int64 check on the host (int64 copies of the whole
+        tables); median of 5 each; then the kernel alone on those tables
+        (CUDA events)."""
+        calls = []
+
+        def rec(*args, **kw):
+            calls.append(named(wrappers["distribute"], args, kw))
+            return wrappers["distribute"](*args, **kw)
+        pk.distribute = rec
+        try:
+            fn()
+        finally:
+            pk.distribute = wrappers["distribute"]
+        a = max(calls, key=lambda c: c["slot_rows"].numel())
+        te, out = a["tile_rows"] * LANES, a["out_rows"]
+        host = tuple(a[k] for k in ("slot_rows", "run_starts", "run_lens"))
+        card = tuple(t.to(dev) for t in host)
+
+        def int64_check(sl, st, ln):
+            ln = pk._i64(ln)
+            pk._refuse("distribute", ("run", pk._outside(pk._i64(st), ln, te)),
+                       ("slot", pk._outside(pk._i64(sl) * LANES,
+                                            (ln + LANES - 1) // LANES * LANES,
+                                            out * LANES)))
+        ms = {}
+        def host_path(upload):
+            p = pk._runs_on_host(*host, te, out)
+            if upload:
+                p.to(dev, non_blocking=True)
+        for name, f in (("host", lambda: host_path(False)),
+                        ("host_up", lambda: host_path(True)),
+                        ("card", lambda: int64_check(*card)),
+                        ("card_up", lambda: int64_check(
+                            *(t.to(dev) for t in host))),
+                        ("host_int64", lambda: int64_check(*host))):
+            each = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f()
+                torch.cuda.synchronize()
+                each.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = statistics.median(each)
+        # the kernel alone on the uploaded used columns, CUDA events
+        tabs = tuple(pk._runs_on_host(*host, te, out).to(dev))
+        outs = [torch.empty((out, LANES), dtype=torch.int32, device=dev)
+                for p in (a["keys"], a["vals"]) if p is not None]
+        ru = tabs[0].shape[1]
+        each = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            kv4._call("distribute", "kv1_distribute", dev, pk._p(a["keys"]),
+                      pk._vp(a["vals"]), a["keys"].numel(), *map(pk._p, tabs),
+                      pk._p(outs[0]), pk._vp(outs[1] if len(outs) > 1
+                                             else None), outs[0].numel(),
+                      tabs[0].numel(), ru, te, len(outs))
+            ev[1].record()
+            torch.cuda.synchronize()
+            each.append(ev[0].elapsed_time(ev[1]))
+        print(f"main {label} distribute kernel alone on the largest "
+              f"call: {statistics.median(each):.3f} ms (CUDA events)")
+        print(f"main {label} distribute table check "
+              f"{tuple(host[0].shape)}, {len(calls)} calls: host "
+              f"{ms['host']:.3f} ms ({ms['host_up']:.3f} with the upload "
+              f"of its used columns), on the card (one sync) "
+              f"{ms['card']:.3f} ms ({ms['card_up']:.3f} with the upload "
+              f"of the tables), host int64 {ms['host_int64']:.3f} ms")
 
     def counts():
         return {**kv4.LAUNCHES, **kv5.LAUNCHES, **pk.LAUNCHES,
@@ -1655,6 +1738,9 @@ def main():
             del res
             if logn == 28:
                 breakdown(label, lambda: sort(keys, rids, config=v1cfg))
+                if rids is None:
+                    table_checks(label, lambda: sort(keys, rids,
+                                                     config=v1cfg))
             del keys, rids
         for logn in V1_VMEM_LOGN:
             label = f"v1 sort_vmem 2^{logn}"

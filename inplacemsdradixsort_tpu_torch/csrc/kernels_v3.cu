@@ -2,8 +2,9 @@
 // partition level (partition_level).  The v3 terminal sort launches the
 // v4 terminal kernel of kernels_v4.cu.
 //
-// Built by ops/_build.py, with the other sources of csrc/, by one nvcc
-// into one shared library with a plain C interface, loaded with ctypes.
+// Built by ops/_build.py, with the other sources of csrc/ (one nvcc -c
+// per source, all run together, then one link) into one shared library
+// with a plain C interface, loaded with ctypes.
 // The launcher takes PyTorch's current stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
 //

@@ -6,10 +6,11 @@
 // (hist_digit_kernel, route_digit_kernel): counts by a radix digit of the
 // raw word, and a partition that is stable by that digit.
 //
-// Built by ops/_build.py, with the other sources of csrc/, by one
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC
-// into one shared library with a plain C interface, loaded with ctypes.
+// Built by ops/_build.py, with the other sources of csrc/: one
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -Xcompiler -fPIC -c
+// per source, all run together, then one link with -shared into one
+// library with a plain C interface, loaded with ctypes.
 // Every launcher takes PyTorch's current stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
 //

@@ -2,10 +2,11 @@
 // sequential-block partition (seqroute_level) and the cycle block permute
 // (block_permute), both in place over the working buffer W.
 //
-// Built by ops/_build.py, with the other sources of csrc/, by one
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC
-// into one shared library with a plain C interface, loaded with ctypes.
+// Built by ops/_build.py, with the other sources of csrc/: one
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -Xcompiler -fPIC -c
+// per source, all run together, then one link with -shared into one
+// library with a plain C interface, loaded with ctypes.
 // Every launcher takes PyTorch's current stream, allocates nothing (the
 // wrapper passes staging, accumulators and cursors), does not
 // synchronise, and returns cudaGetLastError().

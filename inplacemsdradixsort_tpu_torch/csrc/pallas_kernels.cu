@@ -2,10 +2,11 @@
 // sort (tile_sort), the run distribution (distribute), the bucket sort
 // (ragged_sort) and the splice of valid prefixes (compact).
 //
-// Built by ops/_build.py, with the other sources of csrc/, by one
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC
-// into one shared library with a plain C interface, loaded with ctypes.
+// Built by ops/_build.py, with the other sources of csrc/: one
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -Xcompiler -fPIC -c
+// per source, all run together, then one link with -shared into one
+// library with a plain C interface, loaded with ctypes.
 // Every launcher takes PyTorch's current stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
 //
@@ -15,18 +16,21 @@
 // ops/pallas_kernels.py; the notes there say which TPU kernel each
 // replaces and what bounds it on the H100.
 
+#include <cooperative_groups.h>
 #include <limits.h>
 
 #include <algorithm>
 
 #include "bitonic.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int SORT_THREADS = 1024;   // blocks that sort a shared tile
 constexpr int STEP_THREADS = 256;    // one global network step
 constexpr int STEP_BLOCKS = 65536;   // grid cap of a global step
-constexpr int COPY_THREADS = 256;    // distribute / compact / count
+constexpr int COPY_THREADS = 256;    // compact / count
 
 // The regions one sort launch orders in place: region b holds m tuples
 // from element base(b) = start_rows[b] * 128 (or b * m when start_rows is
@@ -173,6 +177,498 @@ int sort_planes(void* keys, void* vals, const Regions& r, long long nb,
   }
 }
 
+// ---------------------------------------------------------- ragged_sort
+// One thread-block cluster per (live bucket, run): the run's tuples stay
+// in the shared memory of the cluster's C CTAs (128 KiB each: 2^15 keys
+// or 2^14 pairs) from one read to one write, and a bitonic network sorts
+// them there.  A run is the whole bucket up to 8 CTAs (2^18 keys, 2^17
+// pairs); a larger bucket is sorted as runs of that size which global
+// steps and merge launches then join.
+//
+// A tuple is one word in shared memory and in registers: a key (int32,
+// signed order), or a (key, val) pair packed into a uint64 whose
+// unsigned order is the pair's order, so both sort with min and max.
+// The network is addressed by the bits of a tuple's index e in the run.
+// A pass loads 2^W tuples into each thread's registers (W = 5 keys-only,
+// 4 pairs): a group, the tuples whose index bits outside a window [wlo,
+// wlo + W) are equal.  It runs every step whose partner distance is a
+// bit of the window in registers and stores the group back.  A step of
+// merge stage kappa compares e with e ^ 2^b and puts the smaller tuple
+// at the lower index where bit kappa of e is 0, the larger one where it
+// is 1; a tuple whose bit kappa is 1 is complemented on load and store
+// (which reverses the order), so every step in registers is an
+// ascending min/max.  Stage kappa takes ceil(kappa / W) passes, so 2^17
+// keys take 34 passes.  Local passes (the window below the CTA's bits)
+// have their window and directions fixed at compile time, so a group's
+// shared-memory addresses are one base and immediate offsets; one
+// __syncthreads separates them.  The passes whose steps cross CTAs (the
+// first pass of each stage above a CTA: 3 for 2^18 keys) read and write
+// the other CTAs' shared memory (distributed shared memory) between
+// cluster barriers.  Tuples equal under the order are identical (every
+// plane is compared), so any correct network gives the plain version's
+// result bit for bit.
+constexpr int CS_THREADS = 512;
+constexpr int CS_MAX_CTAS = 8;
+constexpr int CS_UNROLL = 4;   // 16-byte loads in flight per thread
+
+template <int NP> struct CsWord { using type = int32_t; };
+template <> struct CsWord<2> { using type = unsigned long long; };
+template <int NP> using cs_t = typename CsWord<NP>::type;
+
+template <int NP>
+__host__ __device__ constexpr int cs_w() { return NP == 1 ? 5 : 4; }
+// log2 of the tuples one CTA holds at most (128 KiB of words)
+template <int NP>
+__host__ __device__ constexpr int cs_cta_log() { return NP == 1 ? 15 : 14; }
+
+// Shared-memory word of tuple l: one pad word after every 128 bytes, so
+// a warp reading 32 consecutive tuples, or one tuple from each of 32
+// consecutive groups, meets no bank twice; and a tuple e0 + x with
+// disjoint bits lies at cs_pad(e0) + cs_pad(x).
+template <int NP>
+__host__ __device__ constexpr int cs_pad(int l) {
+  return l + (l >> (NP == 1 ? 5 : 4));
+}
+
+__device__ __forceinline__ unsigned long long cs_pack(int32_t k, int32_t v) {
+  return ((unsigned long long)(uint32_t)(k ^ BIAS) << 32) |
+         (uint32_t)(v ^ BIAS);
+}
+
+struct CsArgs {
+  const int32_t* start_rows;   // bucket b starts at row start_rows[b]
+  const int32_t* live;         // its pad: tuples at or past it are SENT
+  long long m;                 // tuples of a bucket (class_rows * 128)
+  long long len;               // elements of the arena
+  int lr;                      // log2 tuples of a run
+  int sb;                      // log2 tuples of one CTA (lr - sb cluster bits)
+  int nruns;                   // runs per bucket
+  int merge;                   // 0: sort each run; 1: merge-tail steps only
+};
+
+// One ascending network step on a group's registers: partner distance
+// 2^B in register indices, the smaller tuple to the lower one.
+template <int NP, int B>
+__device__ __forceinline__ void cs_step(cs_t<NP> (&x)[1 << cs_w<NP>()]) {
+#pragma unroll
+  for (int r = 0; r < (1 << cs_w<NP>()); ++r)
+    if (!(r & (1 << B))) {
+      const cs_t<NP> a = x[r], b = x[r | (1 << B)];
+      x[r] = min(a, b);
+      x[r | (1 << B)] = max(a, b);
+    }
+}
+
+template <int NP>
+__device__ __forceinline__ void cs_step_at(cs_t<NP> (&x)[1 << cs_w<NP>()],
+                                           int b) {
+  switch (b) {
+    case 0: cs_step<NP, 0>(x); break;
+    case 1: cs_step<NP, 1>(x); break;
+    case 2: cs_step<NP, 2>(x); break;
+    case 3: cs_step<NP, 3>(x); break;
+    default:
+      if constexpr (cs_w<NP>() > 4) cs_step<NP, 4>(x);
+      break;
+  }
+}
+
+// Complement of register r's tuple in a window whose direction bit is
+// bit P of r (P < W), or the group's flip gflip (P == W).
+template <int NP, int P>
+__device__ __forceinline__ cs_t<NP> cs_flip(int r, cs_t<NP> gflip) {
+  return P == cs_w<NP>() ? gflip : ((r >> P) & 1 ? ~cs_t<NP>(0) : 0);
+}
+
+// First tuple of group g of a window at wlo.
+template <int W>
+__device__ __forceinline__ int cs_e0(int g, int wlo) {
+  return ((g >> wlo) << (wlo + W)) | (g & ((1 << wlo) - 1));
+}
+
+// A local pass of stage kappa over window [WLO, WLO + W), steps on bits
+// hi..stop; the direction bit kappa is bit P of the window (P < W) or
+// above it (P == W, from the group's index in the run, CTA rank
+// included).  sm is the CTA's words.
+template <int NP, int WLO, int P>
+__device__ __forceinline__ void cs_local(cs_t<NP>* sm, int sb, int rank,
+                                         int hi, int stop, int kappa) {
+  constexpr int W = cs_w<NP>(), T = 1 << W;
+  const int mask = (1 << sb) - 1;
+  for (int gi = threadIdx.x; gi < (1 << (sb - W)); gi += blockDim.x) {
+    const int e0 = cs_e0<W>((rank << (sb - W)) + gi, WLO);
+    const cs_t<NP> gflip = P == W ? -(cs_t<NP>)((e0 >> kappa) & 1) : 0;
+    // an ascending group (gflip 0) skips the complement
+    const bool flip = P < W || gflip;
+    cs_t<NP>* base = sm + cs_pad<NP>(e0 & mask);
+    cs_t<NP> x[T];
+#pragma unroll
+    for (int r = 0; r < T; ++r) x[r] = base[cs_pad<NP>(r << WLO)];
+    if (flip) {
+#pragma unroll
+      for (int r = 0; r < T; ++r) x[r] ^= cs_flip<NP, P>(r, gflip);
+    }
+    for (int b = hi - WLO; b >= stop - WLO; --b) cs_step_at<NP>(x, b);
+    if (flip) {
+#pragma unroll
+      for (int r = 0; r < T; ++r) x[r] ^= cs_flip<NP, P>(r, gflip);
+    }
+#pragma unroll
+    for (int r = 0; r < T; ++r) base[cs_pad<NP>(r << WLO)] = x[r];
+  }
+}
+
+template <int NP, int WLO>
+__device__ __forceinline__ bool cs_local_p(cs_t<NP>* sm, int sb, int rank,
+                                           int hi, int stop, int kappa) {
+  constexpr int W = cs_w<NP>();
+  const int p = kappa - WLO;
+  if (p == 1)
+    cs_local<NP, WLO, 1>(sm, sb, rank, hi, stop, kappa);
+  else if (p == 2)
+    cs_local<NP, WLO, 2>(sm, sb, rank, hi, stop, kappa);
+  else if (p == 3)
+    cs_local<NP, WLO, 3>(sm, sb, rank, hi, stop, kappa);
+  else if (W > 4 && p == 4)
+    cs_local<NP, WLO, (W > 4 ? 4 : W)>(sm, sb, rank, hi, stop, kappa);
+  else
+    cs_local<NP, WLO, W>(sm, sb, rank, hi, stop, kappa);
+  return true;
+}
+
+// The local pass at a window base of 0, W, 2W or a full CTA's top
+// window (every local pass of a CTA that holds its 128 KiB); false for
+// other bases.
+template <int NP>
+__device__ __forceinline__ bool cs_local_fixed(cs_t<NP>* sm, int sb,
+                                               int rank, int wlo, int hi,
+                                               int stop, int kappa) {
+  constexpr int W = cs_w<NP>(), TOP = cs_cta_log<NP>() - W;
+  if (wlo == 0) return cs_local_p<NP, 0>(sm, sb, rank, hi, stop, kappa);
+  if (wlo == W) return cs_local_p<NP, W>(sm, sb, rank, hi, stop, kappa);
+  if (wlo == 2 * W)
+    return cs_local_p<NP, 2 * W>(sm, sb, rank, hi, stop, kappa);
+  if (wlo == TOP) return cs_local_p<NP, TOP>(sm, sb, rank, hi, stop, kappa);
+  return false;
+}
+
+// A remote pass of a cluster of full CTAs over the run's top window
+// [WLO, WLO + W) (WLO + W = lr): group g's tuples are g + (r << WLO), in
+// CTA (r << WLO) >> SB at a fixed offset from the group's, so each
+// address is a mapped CTA base and an immediate offset.
+template <int NP, int WLO, int P>
+__device__ __forceinline__ void cs_remote(cs_t<NP>* const* words, int rank,
+                                          int hi, int stop) {
+  constexpr int W = cs_w<NP>(), T = 1 << W, SB = cs_cta_log<NP>();
+  constexpr int C = 1 << (WLO + W - SB), MASK = (1 << SB) - 1;
+  for (int gi = threadIdx.x; gi < (1 << (SB - W)); gi += blockDim.x) {
+    const int e0 = (rank << (SB - W)) + gi;     // below 2^WLO
+    cs_t<NP>* base[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) base[c] = words[c] + cs_pad<NP>(e0);
+    cs_t<NP> x[T];
+#pragma unroll
+    for (int r = 0; r < T; ++r)
+      x[r] = base[(r << WLO) >> SB][cs_pad<NP>((r << WLO) & MASK)] ^
+             cs_flip<NP, P>(r, 0);
+    for (int b = hi - WLO; b >= stop - WLO; --b) cs_step_at<NP>(x, b);
+#pragma unroll
+    for (int r = 0; r < T; ++r)
+      base[(r << WLO) >> SB][cs_pad<NP>((r << WLO) & MASK)] =
+          x[r] ^ cs_flip<NP, P>(r, 0);
+  }
+}
+
+template <int NP, int WLO>
+__device__ __forceinline__ bool cs_remote_p(cs_t<NP>* const* words,
+                                            int rank, int hi, int stop,
+                                            int kappa) {
+  constexpr int W = cs_w<NP>();
+  const int p = kappa - WLO;
+  if (p == 1)
+    cs_remote<NP, WLO, 1>(words, rank, hi, stop);
+  else if (p == 2)
+    cs_remote<NP, WLO, 2>(words, rank, hi, stop);
+  else if (p == 3)
+    cs_remote<NP, WLO, 3>(words, rank, hi, stop);
+  else if (W > 4 && p == 4)
+    cs_remote<NP, WLO, (W > 4 ? 4 : W)>(words, rank, hi, stop);
+  else
+    cs_remote<NP, WLO, W>(words, rank, hi, stop);
+  return true;
+}
+
+// The remote pass over the top window of a run of 2, 4 or 8 full CTAs;
+// false for other windows.
+template <int NP>
+__device__ __forceinline__ bool cs_remote_fixed(cs_t<NP>* const* words,
+                                                int sb, int lr, int rank,
+                                                int wlo, int hi, int stop,
+                                                int kappa) {
+  constexpr int W = cs_w<NP>(), SB = cs_cta_log<NP>();
+  if (sb != SB || wlo != lr - W) return false;
+  if (lr == SB + 1)
+    return cs_remote_p<NP, SB + 1 - W>(words, rank, hi, stop, kappa);
+  if (lr == SB + 2)
+    return cs_remote_p<NP, SB + 2 - W>(words, rank, hi, stop, kappa);
+  return cs_remote_p<NP, SB + 3 - W>(words, rank, hi, stop, kappa);
+}
+
+// Stages K..W of the first pass, over window [0, W): the direction bit
+// of stage k < W is bit k of r, of stage W bit 0 of the group.
+template <int NP, int K>
+__device__ __forceinline__ void cs_prefix_stage(
+    cs_t<NP> (&x)[1 << cs_w<NP>()], cs_t<NP> gflip) {
+  constexpr int W = cs_w<NP>(), T = 1 << W;
+  if constexpr (K <= W) {
+#pragma unroll
+    for (int r = 0; r < T; ++r)
+      x[r] ^= (K == 1 ? 0 : cs_flip<NP, K - 1>(r, gflip)) ^
+              cs_flip<NP, K>(r, gflip);
+#pragma unroll
+    for (int b = K - 1; b >= 0; --b) cs_step_at<NP>(x, b);
+    cs_prefix_stage<NP, K + 1>(x, gflip);
+  } else {
+#pragma unroll
+    for (int r = 0; r < T; ++r) x[r] ^= gflip;
+  }
+}
+
+template <int NP>
+__device__ __forceinline__ void cs_prefix(cs_t<NP>* sm, int sb) {
+  constexpr int W = cs_w<NP>(), T = 1 << W;
+  for (int g = threadIdx.x; g < (1 << (sb - W)); g += blockDim.x) {
+    cs_t<NP>* base = sm + cs_pad<NP>(g << W);
+    cs_t<NP> x[T];
+#pragma unroll
+    for (int r = 0; r < T; ++r) x[r] = base[r];
+    cs_prefix_stage<NP, 1>(x, -(cs_t<NP>)(g & 1));
+#pragma unroll
+    for (int r = 0; r < T; ++r) base[r] = x[r];
+  }
+}
+
+// The general pass, window and direction at run time: a remote window
+// (words[rank] is CTA rank's words, mapped into this CTA's view of the
+// cluster) or a local window at another base (words[0] this CTA's).
+// Each CTA takes an equal share of the groups.
+template <int NP, bool REMOTE>
+__device__ __forceinline__ void cs_pass(cs_t<NP>* const* words, int sb,
+                                        int rank, int wlo, int hi, int stop,
+                                        int kappa) {
+  constexpr int W = cs_w<NP>(), T = 1 << W;
+  const int mask = (1 << sb) - 1;
+  for (int gi = threadIdx.x; gi < (1 << (sb - W)); gi += blockDim.x) {
+    const int e0 = cs_e0<W>((rank << (sb - W)) + gi, wlo);
+    cs_t<NP> x[T];
+#pragma unroll
+    for (int r = 0; r < T; ++r) {
+      const int e = e0 | (r << wlo);
+      x[r] = words[REMOTE ? e >> sb : 0][cs_pad<NP>(e & mask)] ^
+             -(cs_t<NP>)((e >> kappa) & 1);
+    }
+    for (int b = hi - wlo; b >= stop - wlo; --b) cs_step_at<NP>(x, b);
+#pragma unroll
+    for (int r = 0; r < T; ++r) {
+      const int e = e0 | (r << wlo);
+      words[REMOTE ? e >> sb : 0][cs_pad<NP>(e & mask)] =
+          x[r] ^ -(cs_t<NP>)((e >> kappa) & 1);
+    }
+  }
+}
+
+// Sort mode: load the run (tuples at or past the bucket's pad as SENT,
+// tuples past m as virtual SENT that are never stored), sort it
+// ascending, store it.  Merge mode: load the run as it is and run the
+// steps of its last stage (distances run/2 .. 1, all ascending), which
+// finish a merge whose longer steps the global launches made.
+template <int NP>
+__global__ void __launch_bounds__(CS_THREADS, 1)
+    cluster_sort_kernel(Planes<NP> a, CsArgs k) {
+  extern __shared__ __align__(16) unsigned char cs_smem[];
+  __shared__ cs_t<NP>* rwords[CS_MAX_CTAS];
+  constexpr int W = cs_w<NP>(), U = CS_UNROLL;
+  const int cbits = k.lr - k.sb;
+  const long long cid = blockIdx.x >> cbits;      // (bucket, run)
+  const long long b = cid / k.nruns;
+  const long long r0 = (cid % k.nruns) << k.lr;   // run's first tuple
+  const long long pad = k.live[b];
+  const long long base = (long long)k.start_rows[b] * LANES;
+  // the same for every CTA of the cluster: all exit or none
+  if (pad <= 0 || base < 0 || base + k.m > k.len || r0 >= k.m) return;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)(blockIdx.x & ((1 << cbits) - 1));
+  const int S = 1 << k.sb;
+  cs_t<NP>* sm = (cs_t<NP>*)cs_smem;
+  if ((int)threadIdx.x < (1 << cbits))
+    rwords[threadIdx.x] = cl.map_shared_rank(sm, threadIdx.x);
+  const long long x0 = r0 + ((long long)rank << k.sb);
+  const long long lim = k.merge ? k.m : min(pad, k.m);
+  bool vec = true;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) vec &= ((uintptr_t)(a.p[q] + base) & 15) == 0;
+  for (int v0 = threadIdx.x; v0 < (S >> 2); v0 += U * blockDim.x) {
+    int32_t w[U][NP][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = v0 + u * blockDim.x;
+      const long long x = x0 + 4 * v;
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        const int32_t* g = a.p[q] + base + x;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) w[u][q][c] = SENT;
+        // lim is m (a multiple of 128) or the pad: the slack past the
+        // pad is not read
+        if (v < (S >> 2) && x < lim) {
+          if (vec) {
+            const int4 t = *(const int4*)g;
+            w[u][q][0] = t.x; w[u][q][1] = t.y;
+            w[u][q][2] = t.z; w[u][q][3] = t.w;
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) w[u][q][c] = g[c];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = v0 + u * blockDim.x;
+      if (v >= (S >> 2)) break;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool in = x0 + 4 * v + c < lim;
+        if constexpr (NP == 1)
+          sm[cs_pad<NP>(4 * v) + c] = in ? w[u][0][c] : SENT;
+        else
+          sm[cs_pad<NP>(4 * v) + c] =
+              in ? cs_pack(w[u][0][c], w[u][1][c]) : ~0ULL;
+      }
+    }
+  }
+  // the passes, with a cluster barrier around every remote one
+  bool was_remote = cbits > 0;
+  auto barrier = [&](bool remote) {
+    if (remote) cl.sync(); else __syncthreads();
+  };
+  auto stage = [&](int kappa) {
+    for (int hi = kappa - 1; hi >= 0;) {
+      // steps on bits hi..stop, in a window inside the CTA where they
+      // fit, else in one that reaches into the cluster's bits
+      const int stop = hi / W * W;
+      const bool remote = hi >= k.sb;
+      const int wlo = min(stop, (remote ? k.lr : k.sb) - W);
+      barrier(remote || was_remote);
+      if (remote) {
+        if (!cs_remote_fixed<NP>(rwords, k.sb, k.lr, rank, wlo, hi, stop,
+                                 kappa))
+          cs_pass<NP, true>(rwords, k.sb, rank, wlo, hi, stop, kappa);
+      }
+      else if (!cs_local_fixed<NP>(sm, k.sb, rank, wlo, hi, stop, kappa))
+        cs_pass<NP, false>(&sm, k.sb, rank, wlo, hi, stop, kappa);
+      was_remote = remote;
+      hi = stop - 1;
+    }
+  };
+  if (k.merge) {
+    stage(k.lr);
+  } else {
+    barrier(was_remote);
+    cs_prefix<NP>(sm, k.sb);                      // stages 1..W
+    was_remote = false;
+    for (int kappa = W + 1; kappa <= k.lr; ++kappa) stage(kappa);
+  }
+  barrier(was_remote);
+  for (int v = threadIdx.x; v < (S >> 2); v += blockDim.x) {
+    const long long x = x0 + 4 * v;
+    if (x >= k.m) break;
+    int32_t w[NP][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const cs_t<NP> t = sm[cs_pad<NP>(4 * v) + c];
+      if constexpr (NP == 1) {
+        w[0][c] = t;
+      } else {
+        w[0][c] = (int32_t)(uint32_t)(t >> 32) ^ BIAS;
+        w[1][c] = (int32_t)(uint32_t)t ^ BIAS;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      int32_t* g = a.p[q] + base + x;
+      if (vec) {
+        *(int4*)g = make_int4(w[q][0], w[q][1], w[q][2], w[q][3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) g[c] = w[q][c];
+      }
+    }
+  }
+}
+
+// Launch cluster_sort_kernel over nb buckets of nruns runs of 2^lr tuples.
+template <int NP>
+cudaError_t cluster_sort(const Planes<NP>& a, const Regions& r, long long nb,
+                         int lr, int nruns, int merge, cudaStream_t st) {
+  const int sb = std::min(lr, cs_cta_log<NP>());
+  const long long grid = (nb * nruns) << (lr - sb);
+  if (grid > INT_MAX) return cudaErrorInvalidValue;
+  const size_t shm = sizeof(cs_t<NP>) * cs_pad<NP>(1 << sb);
+  cudaError_t err = cudaFuncSetAttribute(
+      cluster_sort_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shm);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(CS_THREADS);
+  cfg.dynamicSmemBytes = shm;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << (lr - sb);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const CsArgs k{r.start_rows, r.live, r.m, r.len, lr, sb, nruns, merge};
+  return cudaLaunchKernelEx(&cfg, cluster_sort_kernel<NP>, a, k);
+}
+
+// Sort every live bucket of r.  Up to 8 CTAs of tuples a bucket is one
+// cluster launch.  Larger buckets (N = 2^lN >= m tuples) are sorted as
+// ascending runs of 2^lr, then joined by the network's all-ascending
+// merges (the first step of merge size k pairs i with i ^ (k - 1), the
+// others i with i + j, the smaller tuple to the lower index, so virtual
+// SENT tuples past m stay in place): global_step_kernel for distances of
+// a run or more, a cluster launch in merge mode for the shorter ones.
+template <int NP>
+int ragged_sort_regions(void* const* planes, const Regions& r, long long nb,
+                        cudaStream_t st) {
+  if (nb <= 0 || r.m <= 0) return (int)cudaGetLastError();
+  if (r.m > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const Planes<NP> a = planes_of<NP>(planes);
+  int lN = 0;
+  while ((1LL << lN) < r.m) ++lN;
+  lN = std::max(lN, cs_w<NP>() + 2);
+  const int lr = std::min(lN, cs_cta_log<NP>() + 3);
+  cudaError_t err = cluster_sort<NP>(a, r, nb, lr, 1 << (lN - lr), 0, st);
+  if (err != cudaSuccess) return (int)err;
+  const long long pairs = nb << (lN - 1);
+  const int sgrid = (int)std::min((pairs + STEP_THREADS - 1) / STEP_THREADS,
+                                  (long long)STEP_BLOCKS);
+  for (long long k = 2LL << lr; k <= (1LL << lN); k <<= 1) {
+    global_step_kernel<NP><<<sgrid, STEP_THREADS, 0, st>>>(
+        a, r, nb, lN - 1, (int)(k >> 1), 1, NP - 1);
+    for (long long j = k >> 2; j >= (1LL << lr); j >>= 1)
+      global_step_kernel<NP><<<sgrid, STEP_THREADS, 0, st>>>(
+          a, r, nb, lN - 1, (int)j, 0, NP - 1);
+    err = cluster_sort<NP>(a, r, nb, lr, 1 << (lN - lr), 1, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------ tile_sort
 // One thread per (tile, bound): the number of tuples of the sorted tile
 // whose key is <= the bound, by an upper-bound search.
@@ -193,30 +689,158 @@ __global__ void __launch_bounds__(COPY_THREADS) count_kernel(
 }
 
 // ----------------------------------------------------------- distribute
-// One warp per (tile, range) run: its len tuples from element start of
-// the tile go to row slot of the output, and SENT fills the rest of its
-// last row.  Stores are element-exact, so runs may land in any order.
-// The wrapper refuses runs and slots outside their arenas; the test
-// below only keeps the kernel inside them.
+// One CTA per tile.  Its (range) entries are staged in shared memory,
+// the empty ones dropped; the tile's extent, from its first run start
+// to its furthest run end, comes into shared memory by TMA bulk copies
+// (cp.async.bulk into an mbarrier), DIST_WIN tuples of one plane at a
+// time; then every run goes from there to its slot with 16-byte stores,
+// SENT after the run to the end of its last row.  A slot starts on a row,
+// so its stores are aligned whatever the run's phase in the tile.  A
+// store vector belongs to the window that holds its first element (the
+// run's last for the SENT vectors); elements of it past the window are
+// read from device memory.  Stores are element-exact, so runs may land
+// in any order.  The wrapper refuses runs and slots outside their
+// arenas; the tests below only keep the kernel inside them.
+constexpr int DIST_THREADS = 512;
+constexpr int DIST_WIN = 16384;      // 64 KiB of one plane: 3 CTAs an SM
+constexpr int DIST_MAX_RUNS = 352;   // table width (the wrapper: 3r <= 1024)
+constexpr int BULK_CHUNK = 16384;    // bytes of one bulk copy
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 template <int NP>
-__global__ void __launch_bounds__(COPY_THREADS) distribute_kernel(
+__global__ void __launch_bounds__(DIST_THREADS) distribute_kernel(
     Planes<NP> src, long long src_len, const int32_t* __restrict__ slot_rows,
     const int32_t* __restrict__ run_starts,
     const int32_t* __restrict__ run_lens, Planes<NP> out, long long out_len,
-    long long nruns, int r, long long tile_elems) {
-  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (w >= nruns) return;
-  const long long ln = run_lens[w];
-  if (ln <= 0) return;
-  const long long s = (w / r) * tile_elems + run_starts[w];
-  const long long d = (long long)slot_rows[w] * LANES;
-  const long long end = (ln + LANES - 1) / LANES * LANES;
-  if (s < 0 || d < 0 || s + ln > src_len || d + end > out_len) return;
-  for (long long i = lane; i < end; i += 32) {
+    int r, long long tile_elems, int win) {
+  extern __shared__ __align__(128) int32_t win_smem[];
+  __shared__ int s_start[DIST_MAX_RUNS], s_len[DIST_MAX_RUNS];
+  __shared__ long long s_dst[DIST_MAX_RUNS];
+  __shared__ int s_vec[DIST_MAX_RUNS + 1];   // exclusive prefix of vectors
+  __shared__ int s_n, s_lo, s_hi;
+  __shared__ __align__(8) uint64_t bar;
+  const long long tb = (long long)blockIdx.x * tile_elems;
+  if (threadIdx.x == 0) {
+    s_n = 0;
+    s_lo = INT_MAX;
+    s_hi = 0;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(smem_addr(&bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < r; d += blockDim.x) {
+    const long long i = (long long)blockIdx.x * r + d;
+    const int ln = run_lens[i];
+    if (ln <= 0) continue;
+    const long long s = run_starts[i];
+    const long long dst = (long long)slot_rows[i] * LANES;
+    const long long end = ((long long)ln + LANES - 1) / LANES * LANES;
+    if (s < 0 || s + ln > tile_elems || tb + s + ln > src_len || dst < 0 ||
+        dst + end > out_len)
+      continue;
+    const int j = atomicAdd(&s_n, 1);
+    s_start[j] = (int)s;
+    s_len[j] = ln;
+    s_dst[j] = dst;
+    atomicMin(&s_lo, (int)s);
+    atomicMax(&s_hi, (int)(s + ln));
+  }
+  __syncthreads();
+  const int n = s_n;
+  if (n == 0) return;
+  if (threadIdx.x < 32) {   // warp 0: prefix sum of the runs' vectors
+    const int lane = threadIdx.x;
+    int carry = 0;
+    for (int c = 0; c < n; c += 32) {
+      const int j = c + lane;
+      int v = j < n ? (s_len[j] + LANES - 1) / LANES * (LANES / 4) : 0;
 #pragma unroll
-    for (int q = 0; q < NP; ++q)
-      out.p[q][d + i] = i < ln ? src.p[q][s + i] : SENT;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += u;
+      }
+      if (j < n) s_vec[j + 1] = carry + v;
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+    if (lane == 0) s_vec[0] = 0;
+  }
+  __syncthreads();
+  const int nvec = s_vec[n];
+  const int lo = s_lo & ~3, hi = (s_hi + 3) & ~3;  // tile_elems % 128 == 0
+  const uint32_t bar_at = smem_addr(&bar);
+  uint32_t phase = 0;
+  for (int w0 = lo; w0 < hi; w0 += win) {
+    const int w1 = min(hi, w0 + win);
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int32_t* g = src.p[q] + tb;
+      if (((uintptr_t)src.p[q] & 15) == 0) {
+        if (threadIdx.x == 0) {
+          const uint32_t bytes = (uint32_t)(w1 - w0) * 4;
+          // the window's earlier reads are ordered before the copy's
+          // writes by the barrier that ended them
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          asm volatile(
+              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+              :: "r"(bar_at), "r"(bytes) : "memory");
+          for (uint32_t o = 0; o < bytes; o += BULK_CHUNK) {
+            const uint32_t sz = min((uint32_t)BULK_CHUNK, bytes - o);
+            asm volatile(
+                "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+                "::bytes [%0], [%1], %2, [%3];\n"
+                :: "r"(smem_addr(win_smem) + o),
+                   "l"((uint64_t)(uintptr_t)(g + w0) + o), "r"(sz), "r"(bar_at)
+                : "memory");
+          }
+        }
+        mbar_wait(bar_at, phase);
+        phase ^= 1;
+      } else {
+        for (int i = w0 + threadIdx.x; i < w1; i += blockDim.x)
+          win_smem[i - w0] = g[i];
+        __syncthreads();
+      }
+      int j = 0;
+      for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+        while (s_vec[j + 1] <= v) ++j;
+        const int e = 4 * (v - s_vec[j]);      // first element of the vector
+        const int ln = s_len[j], s = s_start[j];
+        const int first = s + min(e, ln - 1);
+        if (first < w0 || first >= w1) continue;
+        int32_t x[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int at = s + e + c;
+          x[c] = e + c >= ln ? SENT
+                 : at < w1 ? win_smem[at - w0] : g[at];
+        }
+        int32_t* o = out.p[q] + s_dst[j] + e;
+        if (((uintptr_t)out.p[q] & 15) == 0) {
+          *(int4*)o = make_int4(x[0], x[1], x[2], x[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) o[c] = x[c];
+        }
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -273,14 +897,25 @@ int kv1_distribute(void* keys, void* vals, long long src_len,
                    long long out_len, long long nruns, int r,
                    long long tile_elems, int nplanes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (r <= 0 || nruns <= 0) return (int)cudaGetLastError();
+  if (r > DIST_MAX_RUNS || tile_elems % LANES || tile_elems > INT_MAX ||
+      nruns / r > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   void* const src[2] = {keys, vals};
   void* const out[2] = {out_keys, out_vals};
-  const int grid = (int)blocks_for(nruns * 32);
+  const int win = (int)std::min(tile_elems, (long long)DIST_WIN);
+  const size_t shm = (size_t)win * sizeof(int32_t);
 #define KV1_DISTRIBUTE(NP)                                                  \
-  distribute_kernel<NP><<<grid, COPY_THREADS, 0, st>>>(                     \
-      planes_of<NP>(src), src_len, (const int32_t*)slot_rows,               \
-      (const int32_t*)run_starts, (const int32_t*)run_lens,                 \
-      planes_of<NP>(out), out_len, nruns, r, tile_elems)
+  {                                                                         \
+    const cudaError_t err = cudaFuncSetAttribute(                           \
+        distribute_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+        (int)shm);                                                          \
+    if (err != cudaSuccess) return (int)err;                                \
+    distribute_kernel<NP><<<(int)(nruns / r), DIST_THREADS, shm, st>>>(     \
+        planes_of<NP>(src), src_len, (const int32_t*)slot_rows,             \
+        (const int32_t*)run_starts, (const int32_t*)run_lens,               \
+        planes_of<NP>(out), out_len, r, tile_elems, win);                   \
+  }
   switch (nplanes) {
     case 1: KV1_DISTRIBUTE(1); break;
     case 2: KV1_DISTRIBUTE(2); break;
@@ -295,7 +930,13 @@ int kv1_ragged_sort(void* keys, void* vals, long long len,
                     long long class_elems, int nplanes, void* stream) {
   const Regions reg{(const int32_t*)starts_row, (const int32_t*)pad_elems,
                     class_elems, len, 1};
-  return sort_planes(keys, vals, reg, nb, nplanes, (cudaStream_t)stream);
+  void* const planes[2] = {keys, vals};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (nplanes) {
+    case 1: return ragged_sort_regions<1>(planes, reg, nb, st);
+    case 2: return ragged_sort_regions<2>(planes, reg, nb, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int kv1_compact(void* keys, void* vals, long long src_len,

@@ -6,8 +6,9 @@ partition level) and ``pallas_kernels.cu`` (the v1 kernels), which share
 ``bitonic.cuh``.
 
 The library is built at first use on a CUDA tensor, never at import (the
-package imports on machines without ``nvcc``), by one ``nvcc`` call into
-``build/torch_kernels/`` beside the package, under a name that carries
+package imports on machines without ``nvcc``), by one ``nvcc -c`` per
+source, run together, and one link, into ``build/torch_kernels/``
+beside the package, under a name that carries
 a hash of every source and header and of the flags, so an edited source
 rebuilds and an unchanged tree is reused.  The C interface takes every
 pointer and the stream as ``c_void_p`` and returns
@@ -34,7 +35,7 @@ SOURCES = tuple(CSRC / f"{name}.cu"
 HEADERS = (CSRC / "bitonic.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PLANES = [_P] * 4            # one pointer per plane, NULL past nplanes
@@ -91,29 +92,41 @@ def target() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the library if the current sources have none yet, by one
-    ``nvcc`` over every source; return its path.  ``verbose`` adds
-    ``-Xptxas -v``, prints nvcc's report (registers, shared memory,
-    spills per kernel) and rebuilds."""
+    """Compile the library if the current sources have none yet, one
+    ``nvcc -c`` per source, all started together, then one link; return
+    its path.  ``verbose`` adds ``-Xptxas -v``, prints nvcc's report
+    (registers, shared memory, spills per kernel) and rebuilds."""
     out = target()
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *flags, "-o", tmp,
-                              *map(str, SOURCES)],
-                             capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, jobs = [], []
+        for src in SOURCES:
+            obj = os.path.join(tmp, src.stem + ".o")
+            log = open(os.path.join(tmp, src.stem + ".log"), "w+")
+            objs.append(obj)
+            jobs.append((subprocess.Popen(
+                [_nvcc(), *flags, "-c", "-o", obj, str(src)],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        report = ""
+        for proc, log in jobs:
+            proc.wait()
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{text}")
+            report += text
+        lib = os.path.join(tmp, "kernels.so")
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib,
+                              *objs], capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{res.stderr}")
+            raise RuntimeError(f"nvcc link failed:\n{res.stderr}")
         if verbose:
-            print(res.stderr, end="")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            print(report, end="")
+        os.replace(lib, out)
     return out
 
 

@@ -125,8 +125,12 @@ def _arena(words: torch.Tensor, rows: int) -> torch.Tensor:
     return a.view(rows, LANES)
 
 
+def _host(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+
 def _dev(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    return _host(a).to(device)
 
 
 def msd_sort(keys: torch.Tensor, rids: Optional[torch.Tensor],
@@ -219,9 +223,10 @@ def msd_sort(keys: torch.Tensor, rids: Optional[torch.Tensor],
 
         # --- host: child layout (the combine/compact/balance analog)
         with timer.phase("combine"):
-            slot_rows = np.zeros((ntiles, r), np.int64)
-            run_starts = np.zeros((ntiles, r), np.int64)
-            run_lens = np.zeros((ntiles, r), np.int64)
+            # int32, as the kernel takes them: no conversion before the call
+            slot_rows = np.zeros((ntiles, r), np.int32)
+            run_starts = np.zeros((ntiles, r), np.int32)
+            run_lens = np.zeros((ntiles, r), np.int32)
             new_buckets: List[_Bucket] = []
             cursor = 0  # output rows allocated so far
 
@@ -279,11 +284,12 @@ def msd_sort(keys: torch.Tensor, rids: Optional[torch.Tensor],
 
             out_rows = _shape_class_rows(cursor + vmax_rows + chr_rows, tr)
 
-        # --- device: distribute runs to slots
+        # --- device: distribute runs to slots (host tables: the wrapper
+        # checks them there, with no device sync)
         with timer.phase("swap_online"):
             kb, vb = pk.distribute(
-                kb, vb, _dev(slot_rows, dev), _dev(run_starts, dev),
-                _dev(run_lens, dev), out_rows, tr, chr_rows)
+                kb, vb, _host(slot_rows), _host(run_starts),
+                _host(run_lens), out_rows, tr, chr_rows)
             timer.sync(kb)
         buckets = new_buckets
         arena_rows = out_rows
@@ -307,8 +313,8 @@ def msd_sort(keys: torch.Tensor, rids: Optional[torch.Tensor],
                     starts, np.full(nb - len(starts), slack_start, np.int64)])
                 pads = np.concatenate(
                     [pads, np.zeros(nb - len(pads), np.int64)])
-            kb, vb = pk.ragged_sort(kb, vb, _dev(starts, dev),
-                                    _dev(pads, dev), crows)
+            kb, vb = pk.ragged_sort(kb, vb, _host(starts), _host(pads),
+                                    crows)
             for b in bs:
                 b.slot_lens = np.array([b.valid], np.int64)  # dense now
         timer.sync(kb)

@@ -24,10 +24,10 @@ The int32 tables of one call lie together on the arena's device or on
 the CPU.  ``distribute``, ``ragged_sort`` and ``compact`` raise
 ``ValueError`` on tables that place a run, slot, live bucket or segment
 outside its arena, before either version runs: a few reductions over
-the tables where they lie (numpy on the host, a few microseconds for a
-small table) and one read of their flags, which costs a sync for tables
-on the card and none for tables on the host (then copied to the card
-with ``non_blocking``).
+the tables where they lie and one read of their flags, which costs a
+sync for tables on the card and none for tables on the host (then
+copied to the card with ``non_blocking``).  The engine passes
+``distribute`` and ``ragged_sort`` their tables on the host.
 """
 
 from __future__ import annotations
@@ -115,6 +115,53 @@ def _refuse(name: str, *checks) -> None:
     for (msg, _), bad in zip(checks, flags):
         if bad:
             raise ValueError(f"{name}: {msg}")
+
+
+def _runs_on_host(slot_rows, run_starts, run_lens, tile_elems: int,
+                  out_rows: int) -> torch.Tensor:
+    """Check ``distribute``'s host tables and pack their used columns.
+
+    Returns a (3, ntiles, ru) int32 tensor of (slot_rows, run_starts,
+    run_lens) over the first ``ru`` columns, past which every run is
+    empty (ru is 0 if all are).  Raises ValueError as the checks on the
+    card do.  It reads the length table once whole and the other two in
+    the used columns only, with numpy in one thread (torch's threaded CPU
+    ops stalled unpredictably on an H100 host): every entry, empty ones
+    included, must pass the bounds in uint32 (a negative value wraps
+    past them); only tables where one does not are checked entry by
+    entry in int64, so that an empty entry may hold anything.
+    """
+    ln = run_lens.numpy()
+    colmax = ln.max(axis=0) if ln.size else np.zeros(ln.shape[1], np.int32)
+    used = np.flatnonzero(colmax > 0)
+    ru = int(used[-1]) + 1 if used.size else 0
+    packed = np.empty((3, ln.shape[0], ru), np.int32)
+    for p, t in enumerate((slot_rows, run_starts, run_lens)):
+        packed[p] = t.numpy()[:, :ru]
+    if not packed.size:
+        return torch.from_numpy(packed)
+    slot, start, ln = packed
+    u = packed.view(np.uint32)
+    tmp = np.empty_like(u[0])
+    # runs: start + len <= tile_elems, each in [0, tile_elems]
+    bad = (colmax.max() > tile_elems or u[1].max() > tile_elems
+           or np.add(u[1], u[2], out=tmp).max() > tile_elems)
+    if bad:
+        start64 = start.astype(np.int64)
+        bad = ((ln > 0) & ((start64 < 0) | (start64 + ln > tile_elems))).any()
+    if bad:
+        raise ValueError("distribute: a run lies outside its tile")
+    # slots: slot + rows(len) <= out_rows
+    np.add(u[2], LANES - 1, out=tmp)
+    np.right_shift(tmp, 7, out=tmp)
+    bad = (u[0].max() > out_rows
+           or np.add(tmp, u[0], out=tmp).max() > out_rows)
+    if bad:
+        rows = (ln.astype(np.int64) + LANES - 1) // LANES
+        bad = ((ln > 0) & ((slot < 0) | (slot + rows > out_rows))).any()
+    if bad:
+        raise ValueError("distribute: a slot lies outside the output arena")
+    return torch.from_numpy(packed)
 
 
 def _planes(keys, vals):
@@ -258,9 +305,12 @@ def tile_sort(keys: torch.Tensor, vals: Optional[torch.Tensor],
     with the same order and counts by an upper-bound search in the sorted
     tile (R x log2(tile) reads).  On the H100 a tile of 2^15 pairs (256
     KiB) does not fit a block's shared memory, so the sort is bound by
-    its passes over the tile; the count costs little.  Design: the
-    bitonic network of ``ragged_sort`` with every tile a region; a last
-    kernel gives each (tile, bound) a thread for its search.
+    its passes over the tile; the count costs little.  Design: a bitonic
+    network in launches over every tile at once (``sort_regions``): one
+    block sorts each shared-memory tile (16K keys or 8K pairs), then each
+    step with a partner distance of a tile or more is one launch over all
+    pairs in device memory; a last kernel gives each (tile, bound) a
+    thread for its search.
     """
     dev = _check_arena("tile_sort", keys, vals)
     _tables(dev, bounds=bounds, data_elems=data_elems)
@@ -305,7 +355,16 @@ def distribute(keys: torch.Tensor, vals: Optional[torch.Tensor],
     element-exact (the run, then SENT to the end of its last row) and
     64-bit addressed, so runs may land in any order.  On the H100 it is a
     copy, bound by reading each run and writing its rows once.  Design:
-    one warp per run.
+    one CTA per tile stages the tile's non-empty runs in shared memory,
+    brings the tile's extent (first run start to furthest run end) into
+    shared memory with TMA bulk copies, 16K elements of one plane at a
+    time (three CTAs an SM), and writes each run to its row-aligned slot
+    with 16-byte stores.  CUDA C++ rather than Triton: Triton has no TMA
+    bulk copy into an mbarrier.
+
+    Tables on the host (the engine's) are checked there, and only their
+    used columns (``_runs_on_host``) go to the card, with no sync; tables
+    on the card are checked there, with one sync.
     """
     dev = _check_arena("distribute", keys, vals)
     _tables(dev, slot_rows=slot_rows, run_starts=run_starts,
@@ -319,26 +378,34 @@ def distribute(keys: torch.Tensor, vals: Optional[torch.Tensor],
         raise ValueError(f"distribute: tables {tuple(slot_rows.shape)} do "
                          f"not match {keys.shape[0]} rows of "
                          f"{tile_rows}-row tiles")
-    ln = _i64(run_lens)
-    _refuse("distribute",
-            ("a run lies outside its tile",
-             _outside(_i64(run_starts), ln, tile_rows * LANES)),
-            ("a slot lies outside the output arena",
-             _outside(_i64(slot_rows) * LANES,
-                      (ln + LANES - 1) // LANES * LANES, out_rows * LANES)))
+    if run_lens.device.type == "cpu":
+        packed = _runs_on_host(slot_rows, run_starts, run_lens,
+                               tile_rows * LANES, out_rows)
+    else:
+        ln = _i64(run_lens)
+        _refuse("distribute",
+                ("a run lies outside its tile",
+                 _outside(_i64(run_starts), ln, tile_rows * LANES)),
+                ("a slot lies outside the output arena",
+                 _outside(_i64(slot_rows) * LANES,
+                          (ln + LANES - 1) // LANES * LANES,
+                          out_rows * LANES)))
+        packed = None
     if dev.type == "cpu":
         return distribute_ref(keys, vals, slot_rows, run_starts, run_lens,
                               out_rows, tile_rows, chr_rows)
     outs = [torch.empty((out_rows, LANES), dtype=torch.int32, device=dev)
             for _ in _planes(keys, vals)]
     ov = outs[1] if vals is not None else None
-    slot_rows, run_starts, run_lens = _on(dev, slot_rows, run_starts,
-                                          run_lens)
+    if packed is None:
+        tables = _on(dev, slot_rows, run_starts, run_lens)
+    else:
+        r = packed.shape[2]
+        tables = tuple(packed.to(dev, non_blocking=True))
     if ntiles * r:
         _launch("distribute", "kv1_distribute", dev, _p(keys), _vp(vals),
-                keys.numel(), _p(slot_rows), _p(run_starts), _p(run_lens),
-                _p(outs[0]), _vp(ov), outs[0].numel(), ntiles * r, r,
-                tile_rows * LANES, len(outs))
+                keys.numel(), *map(_p, tables), _p(outs[0]), _vp(ov),
+                outs[0].numel(), ntiles * r, r, tile_rows * LANES, len(outs))
     return outs[0], ov
 
 
@@ -353,17 +420,22 @@ def ragged_sort(keys: torch.Tensor, vals: Optional[torch.Tensor],
 
     Replaces ``pallas_kernels.py:365-471`` (``_ragged_sort_kernel``), a
     whole bucket in VMEM.  On the H100 a class of up to 2048 rows (2^18
-    keys, 1 MiB a plane) does not fit a block's shared memory, and
-    ``sort_vmem`` puts its whole input in one bucket, so the sort is
-    bound by its passes over the buckets.  Design: a bitonic network in
-    launches over all buckets of the call at once: one block per
-    shared-memory tile (16K keys or 8K pairs, 64 KiB) sorts it; then, for
-    every merge size above the tile, each step with a partner distance of
-    a tile or more is one launch over all pairs in device memory, and the
-    shorter steps run per tile in shared memory.  Any number of blocks
-    shares a bucket, so one large bucket fills the card.  Dummy buckets
-    are skipped by every kernel (concurrent blocks on one region would
-    race).
+    keys, 1 MiB a plane) does not fit one block's shared memory, but it
+    fits a thread-block cluster's: 8 CTAs x 128 KiB hold 2^18 keys or
+    2^17 pairs.  The sort is bound by its passes over shared memory; the
+    bound counts one read and one write of each live bucket.  Design: one
+    cluster of 1, 2, 4 or 8 CTAs per live bucket, chosen per launch from
+    the class's bytes, loads the bucket once (16-byte loads; the tail
+    past its pad as SENT; a pair packed into one 64-bit word), sorts it
+    in shared memory with a bitonic network whose steps run in
+    registers, 32 keys or 16 pairs a thread at a time, and in
+    distributed shared memory for the distances across CTAs, and stores
+    it once: one launch a call.  A class above 8 x 128
+    KiB (``sort_vmem``'s one bucket of 2^20 keys) is sorted as cluster
+    runs of that size and then merged: global steps for the distances of
+    a run or more, the cluster kernel in merge mode for the shorter ones.
+    Dummy buckets exit at once.  CUDA C++ rather than Triton: Triton has
+    no thread-block clusters or distributed shared memory.
     """
     dev = _check_arena("ragged_sort", keys, vals)
     _tables(dev, starts_row=starts_row, pad_elems=pad_elems)

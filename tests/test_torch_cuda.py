@@ -492,10 +492,11 @@ def _v1_replay(fn):
 def test_v1_kernels_match_plain_versions(cuda):
     """Every v1 kernel call of a sort at the reference tests' tiny
     geometry and at the default one equals its plain version on the same
-    CUDA inputs; the sort equals numpy."""
+    CUDA inputs; the sort equals numpy.  distribute's edge cases too."""
     for cfg in (V1_TINY, SortConfig(engine="pallas")):
         for kind in ("uniform", "dup8", "maxheavy", "pairs"):
             _check_v1_sort(cuda, kind, cfg)
+    _check_distribute_edges(cuda)
 
 
 def _check_v1_sort(cuda, kind, cfg):
@@ -520,13 +521,131 @@ def _check_v1_sort(cuda, kind, cfg):
             box["r"][1].cpu().numpy().astype(np.int64), order)
 
 
+def _distribute_tables(rng, tile_rows, ntiles, r, kind):
+    """(slot_rows, run_starts, run_lens, out_rows) as int64 numpy tables:
+    "edges" gives tiles runs of length 1, of one row, of a whole tile and
+    ending on a row edge; "one_range" gives each tile one run in range 0
+    holding the whole tile (the engine's forward repack); "random" any
+    in-tile runs.  Slots follow each other in a shuffled order."""
+    te = tile_rows * LANES
+    ln = np.zeros((ntiles, r), np.int64)
+    st = np.zeros_like(ln)
+    for t in range(ntiles):
+        if kind == "edges":
+            c = t % 4
+            if c == 0:
+                st[t, :3] = (rng.integers(0, te), 5, te - LANES)
+                ln[t, :3] = (1, LANES, LANES)
+            elif c == 1:
+                ln[t, r - 1] = te
+            elif c == 2:
+                st[t, 1] = LANES - 7
+                ln[t, 1] = 7 + 2 * LANES
+        elif kind == "one_range":
+            ln[t, 0] = te
+        else:
+            for d in range(r):
+                if rng.random() < 0.5:
+                    s = int(rng.integers(0, te))
+                    st[t, d] = s
+                    ln[t, d] = rng.integers(1, te - s + 1)
+    rows = ((ln + LANES - 1) // LANES).reshape(-1)
+    perm = rng.permutation(rows.size)
+    slot = np.zeros_like(ln)
+    slot.reshape(-1)[perm] = np.cumsum(rows[perm]) - rows[perm]
+    return slot, st, ln, int(rows.sum()) + 5
+
+
+def _check_distribute_edges(cuda):
+    """distribute on its edge cases equals its plain version, with the
+    tables on the host and on the card; both refuse bad tables alike."""
+    rng = np.random.default_rng(9)
+    for tile_rows, ntiles, r, kind, pairs in [
+            (8, 12, 8, "edges", False), (8, 12, 8, "edges", True),
+            (256, 6, 256, "edges", True), (256, 5, 256, "one_range", False),
+            (256, 4, 64, "random", True), (512, 3, 16, "random", False)]:
+        slot, st, ln, out_rows = _distribute_tables(rng, tile_rows, ntiles,
+                                                    r, kind)
+        n = ntiles * tile_rows * LANES
+        planes = [torch.from_numpy(rng.integers(-2**31, 2**31, n)
+                                   .astype(np.int32)).view(-1, LANES).to(cuda)
+                  for _ in range(2 if pairs else 1)]
+        vals = planes[1] if pairs else None
+        host = [torch.from_numpy(t.astype(np.int32)) for t in (slot, st, ln)]
+        want = pk.distribute_ref(planes[0], vals, *host, out_rows, tile_rows)
+        mask = pk.defined_elems("distribute", dict(
+            keys=planes[0], slot_rows=host[0], run_lens=host[2]),
+            out_rows * LANES)
+        for tables in (host, [t.to(cuda) for t in host]):
+            got = pk.distribute(planes[0], vals, *tables, out_rows,
+                                tile_rows)
+            for g, w in zip(got, want):
+                if w is not None:
+                    assert torch.equal(g.reshape(-1)[mask],
+                                       w.reshape(-1)[mask]), (kind, r)
+    k = torch.zeros((16, LANES), dtype=torch.int32, device=cuda)
+    t = functools.partial(torch.tensor, dtype=torch.int32)
+    for dev in (cuda, "cpu"):
+        with pytest.raises(ValueError, match="run"):
+            pk.distribute(k, None, t([[0, 0]], device=dev),
+                          t([[0, 2000]], device=dev),
+                          t([[0, 100]], device=dev), 16, 16)
+        with pytest.raises(ValueError, match="slot"):
+            pk.distribute(k, None, t([[0, 15]], device=dev),
+                          t([[0, 0]], device=dev),
+                          t([[0, 200]], device=dev), 16, 16)
+        # an empty entry may hold anything
+        pk.distribute(k, None, t([[-5, 0]], device=dev),
+                      t([[-9, 0]], device=dev), t([[0, 3]], device=dev),
+                      16, 16)
+
+
+def _ragged_case(rng, cuda, class_rows, pairs, nlive, ndummy, fill=None):
+    """ragged_sort against its plain version: nlive buckets (the first
+    full, the rest with random pads), then ndummy pad-0 buckets pointing
+    at one slack region that holds data and must stay as it was.
+    ``fill`` "equal" makes every key one value; "sent" makes a third of
+    the keys SENT with values below SENT."""
+    nb = nlive + ndummy
+    rows = (nlive + 1) * class_rows
+    kp = [torch.from_numpy(rng.integers(-2**31, 2**31, rows * LANES)
+                           .astype(np.int32)).view(rows, LANES).to(cuda)
+          for _ in range(2 if pairs else 1)]
+    if fill == "equal":
+        kp[0].fill_(12345)
+    elif fill == "sent":
+        kp[0].view(-1)[::3] = 2**31 - 1
+    m = class_rows * LANES
+    starts = np.full(nb, nlive * class_rows, np.int32)
+    starts[:nlive] = np.arange(nlive) * class_rows
+    pads = np.zeros(nb, np.int32)
+    pads[:nlive] = rng.integers(1, m + 1, nlive)
+    pads[0] = m
+    vals = kp[1] if pairs else None
+    for tables in ((torch.from_numpy(starts), torch.from_numpy(pads)),
+                   (torch.from_numpy(starts).to(cuda),
+                    torch.from_numpy(pads).to(cuda))):
+        want = pk.ragged_sort_ref(_clone(kp[0]), _clone(vals), *tables,
+                                  class_rows)
+        got = pk.ragged_sort(_clone(kp[0]), _clone(vals), *tables,
+                             class_rows)
+        for g, w, x in zip(got, want, kp):
+            assert torch.equal(g, w), (class_rows, pairs, nlive, fill)
+            assert torch.equal(g[nlive * class_rows:],
+                               x[nlive * class_rows:])
+
+
 def test_v1_ragged_edges_and_sort_vmem(cuda):
     """ragged_sort leaves pad-0 dummy buckets alone (here all pointing at
-    one region that holds data), and sorts classes above the shared tile
-    and of a size that is no power of two; sort_vmem is one ragged_sort
-    launch over the whole input.  Tables that place a live bucket, a run
-    or a segment outside its arena raise ValueError on the card too,
-    whether the tables lie on the card or on the host."""
+    one region that holds data), and sorts every class: one cluster of
+    1, 2, 4 and 8 CTAs (keys up to 2048 rows, pairs up to 1024), classes
+    above a cluster (runs merged by global steps and merge launches) and
+    of a size that is no power of two, many live buckets before the
+    dummies, all-equal buckets and pairs whose keys are SENT with values
+    below it, with tables on the host and on the card; sort_vmem is one
+    ragged_sort launch over the whole input.  Tables that place a live
+    bucket, a run or a segment outside its arena raise ValueError on the
+    card too, whether the tables lie on the card or on the host."""
     rng = np.random.default_rng(5)
     k = torch.zeros((16, LANES), dtype=torch.int32, device=cuda)
     t = functools.partial(torch.tensor, dtype=torch.int32, device=cuda)
@@ -538,25 +657,18 @@ def test_v1_ragged_edges_and_sort_vmem(cuda):
         pk.distribute(k, None, t([[0]]), t([[2000]]), t([[100]]), 16, 16)
     with pytest.raises(ValueError, match="segment"):
         pk.compact(k, None, t([15]), t([200]), 8)
-    for class_rows, pairs in [(2048, False), (1024, True), (96, False),
-                              (384, True)]:
-        rows = 6 * class_rows
-        kp = [torch.from_numpy(rng.integers(-2**31, 2**31, rows * LANES)
-                               .astype(np.int32)).view(rows, LANES).to(cuda)
-              for _ in range(2 if pairs else 1)]
-        starts = torch.tensor([0, 2 * class_rows, 4 * class_rows,
-                               4 * class_rows], dtype=torch.int32,
-                              device=cuda)
-        pads = torch.tensor([class_rows * LANES, 1000, 0, 0],
-                            dtype=torch.int32, device=cuda)
-        vals = kp[1] if pairs else None
-        want = pk.ragged_sort_ref(_clone(kp[0]), _clone(vals), starts, pads,
-                                  class_rows)
-        got = pk.ragged_sort(_clone(kp[0]), _clone(vals), starts, pads,
-                             class_rows)
-        for g, w, x in zip(got, want, kp):
-            assert torch.equal(g, w)        # dummies' region untouched too
-            assert torch.equal(g[4 * class_rows:], x[4 * class_rows:])
+    for class_rows, pairs in [(256, False), (512, False), (1024, False),
+                              (2048, False), (128, True), (256, True),
+                              (512, True), (1024, True), (96, False),
+                              (384, True), (3072, False), (4096, False),
+                              (1536, True), (2048, True)]:
+        _ragged_case(rng, cuda, class_rows, pairs, 2, 2)
+    _ragged_case(rng, cuda, 256, False, 40, 24)
+    _ragged_case(rng, cuda, 128, True, 21, 11)
+    _ragged_case(rng, cuda, 1024, False, 3, 1, "equal")
+    _ragged_case(rng, cuda, 512, True, 3, 1, "equal")
+    _ragged_case(rng, cuda, 1024, True, 3, 1, "sent")
+    _ragged_case(rng, cuda, 2048, True, 2, 0, "sent")
     for logn in (10, 15, 20):
         x = _keys((1 << logn) - 3, logn)
         pk.reset_launches()
