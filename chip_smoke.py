@@ -98,7 +98,11 @@ stable ``torch.sort`` of (tile, digit) keys for ``route_level.digit``
 runs' real prefixes).  Where the library call
 covers only some launches, the JSON record gives their count
 (``library_calls``) and the kernel's time on them
-(``library_kernel_ms``) beside ``library_ms``.  Then: the port's peak memory
+(``library_kernel_ms``) beside ``library_ms``.  ``compact`` and
+``block_permute`` also report their launch alone (CUDA events around the
+C launcher, without the wrapper's host work and uploads) as
+``launch_ms``, per call in the log and summed in the JSON record.  Then:
+the port's peak memory
 in a second sort, its time against what a user would otherwise run
 (``torch.sort`` on the keys; stable, plus a gather of the rids), and
 each kernel's time inside one 2^28 sort, keys only and pairs (v4, v1,
@@ -233,6 +237,9 @@ KERNELS = {
                 "inplacemsdradixsort_tpu_torch/csrc/pallas_kernels.cu",
                 "inplacemsdradixsort_tpu/ops/pallas_kernels.py:620"),
 }
+# kernels whose launch alone (CUDA events around the C launcher, the
+# wrapper's host work and uploads outside) is timed beside the wrapper
+LAUNCH_TIMED = ("compact", "block_permute")
 LANES = 128
 BLK = 256 * LANES                  # v5's exchange block, in elements
 # the wrapper functions behind the KERNELS entries
@@ -1187,7 +1194,8 @@ class Checker:
         self.mods, self.wrappers, self.log = mods, wrappers, log
         self.totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
                                   library_ms=0.0, max_abs_err=0,
-                                  library_calls=0, library_kernel_ms=0.0)
+                                  library_calls=0, library_kernel_ms=0.0,
+                                  launch_ms=0.0)
                        for name in KERNELS}
         self.by_input = {}      # (input, kernel, planes) -> sums
         self.fill_buckets = {}  # input -> v3 value-fill buckets written
@@ -1208,7 +1216,10 @@ class Checker:
                 if lbl == label:
                     print(f"check [{label}] {name} planes={planes}: "
                           f"{r['calls']} calls, max_abs_err {r['err']}, "
-                          f"kernel {r['ms']:.3f} ms, plain {r['pms']:.3f} "
+                          f"kernel {r['ms']:.3f} ms"
+                          + (f" (launch {r['launch']:.3f} ms)"
+                             if name in LAUNCH_TIMED else "")
+                          + f", plain {r['pms']:.3f} "
                           f"ms, bound {r['bound']:.4f} ms"
                           + (f", library {r['lib']:.3f} ms"
                              if name in LIBRARY else ""))
@@ -1230,12 +1241,28 @@ class Checker:
             before = _clone(tuple(a[inplace])) if inplace else None
             if inplace_v1:
                 before = {k: _clone(a[k]) for k in ("keys", "vals")}
+            kmod = self._module(name)
+            launch_ev, inner = [], kmod._launch
+            if name in LAUNCH_TIMED:
+                def timed_launch(*la):
+                    e = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(2)]
+                    e[0].record()
+                    inner(*la)
+                    e[1].record()
+                    launch_ev.append(e)
+                kmod._launch = timed_launch
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            out = kern(*args, **kw)
+            try:
+                out = kern(*args, **kw)
+            finally:
+                kmod._launch = inner
             ev[1].record()
             torch.cuda.synchronize()
             ms = ev[0].elapsed_time(ev[1])
+            launch_ms = (sum(e[0].elapsed_time(e[1]) for e in launch_ev)
+                         if name in LAUNCH_TIMED else None)
             lms = (LIBRARY[name](self.mods, a, out, before)
                    if name in LIBRARY else None)
             err, pms = CHECKS[name](self.mods, a, out, before)
@@ -1281,7 +1308,9 @@ class Checker:
                              if off.numel() > 1 else 0)
             print(f"[{self.label}] {name} planes={planes} {extra}: "
                   f"max_abs_err {err} kernel {ms:.4f} ms plain {pms:.4f} "
-                  f"ms bound {bound:.5f} ms library {lms} ms",
+                  f"ms bound {bound:.5f} ms library {lms} ms"
+                  + (f" launch {launch_ms:.4f} ms" if launch_ms is not None
+                     else ""),
                   file=self.log)
             t = self.totals[name]
             t["max_abs_err"] = max(t["max_abs_err"], err)
@@ -1289,21 +1318,25 @@ class Checker:
             t["plain_ms"] += pms
             t["bound_ms"] += bound
             t["library_ms"] += lms or 0.0
+            t["launch_ms"] += launch_ms or 0.0
             if lms is not None:
                 t["library_calls"] += 1
                 t["library_kernel_ms"] += ms
             r = self.by_input.setdefault(
                 (self.label, name, planes),
-                dict(calls=0, err=0, ms=0.0, pms=0.0, bound=0.0, lib=0.0))
+                dict(calls=0, err=0, ms=0.0, pms=0.0, bound=0.0, lib=0.0,
+                     launch=0.0))
             r["calls"] += 1
             r["err"] = max(r["err"], err)
             r["ms"] += ms
             r["pms"] += pms
             r["bound"] += bound
             r["lib"] += lms or 0.0
+            r["launch"] += launch_ms or 0.0
             if name == "block_permute":
                 print(f"check [{self.label}] block_permute {extra}: "
-                      f"kernel {ms:.3f} ms, index_select {lms:.3f} ms")
+                      f"kernel {ms:.3f} ms (launch {launch_ms:.3f} ms), "
+                      f"index_select {lms:.3f} ms")
             assert err == 0, (f"{name} ({planes} planes, {extra}) on "
                               f"{self.label} disagrees with its plain "
                               f"version")
@@ -1957,7 +1990,10 @@ def main():
          "library_calls": (totals[name]["library_calls"]
                            if name in LIBRARY else None),
          "library_kernel_ms": (round(totals[name]["library_kernel_ms"], 4)
-                               if name in LIBRARY else None)}
+                               if name in LIBRARY else None),
+         # CUDA events around the launch alone, summed like "ms"
+         "launch_ms": (round(totals[name]["launch_ms"], 4)
+                       if name in LAUNCH_TIMED else None)}
         for name, (_, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

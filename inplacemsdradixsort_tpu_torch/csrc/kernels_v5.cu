@@ -34,8 +34,9 @@ constexpr int COPY_PARTS = 8;        // flush / drain blocks per range
 constexpr int ROUTE_THREADS = 512;
 constexpr int ROUTE_CHUNK = 16384;   // tile elements per route block
 constexpr int PERMUTE_THREADS = 256;
-// blocks per cycle: each thread of them owns one int4 of every plane
+// blocks per chunk: each thread of them owns one int4 of every plane
 constexpr int PERMUTE_SPLIT = (int)(BLK / 4 / PERMUTE_THREADS);
+constexpr int PERMUTE_MAX_CHUNK = 1024;   // positions a chunk, at most
 
 template <int NP>
 struct Planes {
@@ -275,60 +276,140 @@ int launch_seqroute(void* const* wp, long long w_len, const int32_t* meta,
 }
 
 // ------------------------------------------------------ block_permute
-// One cycle per PERMUTE_SPLIT blocks: thread i of block `part` owns the
-// int4 at element offset (part * PERMUTE_THREADS + i) * 4 of every W
-// block in the cycle.  Slot cyc[i] takes the block of slot cyc[i + 1];
-// the last slot takes the head, which the thread keeps in registers.
-// Each offset is a chain of its own, so no barrier is needed; a thread
-// reads PD blocks ahead of its writes, and never reads a slot it has
-// already written (reads run ahead of writes along the cycle).
+// The cycles lie end to end in cyc_slots: position i of the table is a
+// slot, and slot cyc[i] takes the block of cyc[i + 1] (the cycle's last
+// position takes its head's).  The positions are cut into chunks of S,
+// one group of PERMUTE_SPLIT blocks each; thread t of block `part` of a
+// group owns the int4 at element offset (part * PERMUTE_THREADS + t) * 4
+// of every W block, and walks its chunk in order.  A chunk so holds a
+// piece of a long cycle, or several short cycles, and every SM has work
+// whatever the longest cycle.  Only two kinds of block are read by a
+// chunk other than the one that writes them, and the first launch
+// (permute_heads_kernel) saves both to the head scratch H before the
+// second (permute_kernel) writes any slot; stream order is the only
+// ordering needed:
+// - H[2j], chunk j's first position when it is no cycle's start (the
+//   last position of chunk j - 1 reads it);
+// - H[2j + 1], the head of the cycle that starts in chunk j and ends past
+//   it (that cycle's last position reads it).
+// The head of a cycle that ends in the chunk it starts in stays in
+// registers: the thread reads it before it writes the head's slot.
+// Every other read is of a slot the same thread writes later, and reads
+// run ahead of writes along the chunk, PD blocks at a time.
+
+// The cycle that holds position i: the largest c with off[c] <= i.
+__device__ __forceinline__ int cycle_of(const int32_t* __restrict__ off,
+                                        int ncyc, int i) {
+  int lo = 0, hi = ncyc - 1;
+  while (lo < hi) {
+    const int m = (lo + hi + 1) >> 1;
+    if (off[m] <= i) lo = m; else hi = m - 1;
+  }
+  return lo;
+}
+
 template <int NP>
-__global__ void __launch_bounds__(PERMUTE_THREADS) permute_kernel(
-    Planes<NP> w, const int32_t* __restrict__ cyc_off,
-    const int32_t* __restrict__ cyc_slots) {
-  constexpr int PD = NP <= 2 ? 8 : 4;
-  const int c = blockIdx.x / PERMUTE_SPLIT;
-  const int part = blockIdx.x % PERMUTE_SPLIT;
-  const int o0 = cyc_off[c];
-  const int L = cyc_off[c + 1] - o0;
-  if (L < 2) return;
-  const long long e = ((long long)part * PERMUTE_THREADS + threadIdx.x) * 4;
-  const int32_t* cyc = cyc_slots + o0;
-  int4 head[NP];
+__device__ __forceinline__ void copy_int4(const Planes<NP>& to, long long a,
+                                          const Planes<NP>& from,
+                                          long long b) {
 #pragma unroll
   for (int q = 0; q < NP; ++q)
-    head[q] = *(int4*)(w.p[q] + ((long long)cyc[0] << BLK_SHIFT) + e);
-  for (int i = 0; i < L - 1; i += PD) {
-    int4 v[PD][NP];
+    *(int4*)(to.p[q] + a) = *(const int4*)(from.p[q] + b);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(PERMUTE_THREADS) permute_heads_kernel(
+    Planes<NP> w, const int32_t* __restrict__ off,
+    const int32_t* __restrict__ slots, int ncyc, int moved, int S,
+    Planes<NP> H) {
+  const int j = blockIdx.x / PERMUTE_SPLIT;
+  const int part = blockIdx.x % PERMUTE_SPLIT;
+  const long long e = ((long long)part * PERMUTE_THREADS + threadIdx.x) * 4;
+  const int i0 = j * S, i1 = min(i0 + S, moved);
+  if (j > 0 && off[cycle_of(off, ncyc, i0)] != i0)
+    copy_int4(H, ((long long)(2 * j) << BLK_SHIFT) + e, w,
+              ((long long)slots[i0] << BLK_SHIFT) + e);
+  const int c = cycle_of(off, ncyc, i1 - 1);
+  if (off[c] >= i0 && off[c + 1] > i1)
+    copy_int4(H, ((long long)(2 * j + 1) << BLK_SHIFT) + e, w,
+              ((long long)slots[off[c]] << BLK_SHIFT) + e);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(PERMUTE_THREADS) permute_kernel(
+    Planes<NP> w, const int32_t* __restrict__ off,
+    const int32_t* __restrict__ slots, int ncyc, int moved, int S,
+    Planes<NP> H) {
+  constexpr int PD = NP <= 2 ? 8 : 4;
+  __shared__ int32_t cyc[PERMUTE_MAX_CHUNK];
+  const int j = blockIdx.x / PERMUTE_SPLIT;
+  const int part = blockIdx.x % PERMUTE_SPLIT;
+  const long long e = ((long long)part * PERMUTE_THREADS + threadIdx.x) * 4;
+  const int i0 = j * S, i1 = min(i0 + S, moved);
+  for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x)
+    cyc[i - i0] = slots[i];
+  __syncthreads();
+  // one piece [a, b) of one cycle at a time (positions past the last
+  // cycle, which a well-formed table has none of, are left alone)
+  for (int c = cycle_of(off, ncyc, i0), a = i0; a < i1 && c < ncyc; ++c) {
+    const int start = off[c], end = off[c + 1];
+    const int b = min(end, i1);
+    if (b <= a) continue;
+    // the block the piece's last position takes: the next chunk's first
+    // (saved), the head of a cycle that started in an earlier chunk
+    // (saved), or the head of this chunk's own cycle, read from W before
+    // the piece writes its slot
+    const bool own = b == end && start >= i0;
+    const long long la =
+        b < end ? (long long)(2 * j + 2) << BLK_SHIFT
+        : !own  ? (long long)(2 * (start / S) + 1) << BLK_SHIFT
+                : (long long)cyc[start - i0] << BLK_SHIFT;
+    int4 last[NP];
 #pragma unroll
-    for (int k = 0; k < PD; ++k) {
-      if (i + k < L - 1) {
-        const long long a = ((long long)cyc[i + 1 + k] << BLK_SHIFT) + e;
+    for (int q = 0; q < NP; ++q)
+      last[q] = *(const int4*)((own ? w.p[q] : H.p[q]) + la + e);
+    for (int i = a; i < b - 1; i += PD) {
+      int4 v[PD][NP];
 #pragma unroll
-        for (int q = 0; q < NP; ++q) v[k][q] = *(int4*)(w.p[q] + a);
+      for (int k = 0; k < PD; ++k) {
+        if (i + k < b - 1) {
+          const long long s =
+              ((long long)cyc[i + 1 + k - i0] << BLK_SHIFT) + e;
+#pragma unroll
+          for (int q = 0; q < NP; ++q) v[k][q] = *(const int4*)(w.p[q] + s);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < PD; ++k) {
+        if (i + k < b - 1) {
+          const long long d = ((long long)cyc[i + k - i0] << BLK_SHIFT) + e;
+#pragma unroll
+          for (int q = 0; q < NP; ++q) *(int4*)(w.p[q] + d) = v[k][q];
+        }
       }
     }
+    const long long d = ((long long)cyc[b - 1 - i0] << BLK_SHIFT) + e;
 #pragma unroll
-    for (int k = 0; k < PD; ++k) {
-      if (i + k < L - 1) {
-        const long long a = ((long long)cyc[i + k] << BLK_SHIFT) + e;
-#pragma unroll
-        for (int q = 0; q < NP; ++q) *(int4*)(w.p[q] + a) = v[k][q];
-      }
-    }
+    for (int q = 0; q < NP; ++q) *(int4*)(w.p[q] + d) = last[q];
+    a = b;
   }
-  const long long a = ((long long)cyc[L - 1] << BLK_SHIFT) + e;
-#pragma unroll
-  for (int q = 0; q < NP; ++q) *(int4*)(w.p[q] + a) = head[q];
 }
 
 template <int NP>
 int launch_permute(void* const* wp, const int32_t* cyc_off,
-                   const int32_t* cyc_slots, int ncyc, cudaStream_t st) {
-  const long long grid = (long long)ncyc * PERMUTE_SPLIT;
+                   const int32_t* cyc_slots, int ncyc, int moved, int S,
+                   void* const* hp, cudaStream_t st) {
+  if (ncyc <= 0 || moved <= 0) return (int)cudaGetLastError();
+  if (S < 1 || S > PERMUTE_MAX_CHUNK) return (int)cudaErrorInvalidValue;
+  const long long nchunks = ((long long)moved + S - 1) / S;
+  const long long grid = nchunks * PERMUTE_SPLIT;
   if (grid > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const Planes<NP> w = planes_of<NP>(wp), H = planes_of<NP>(hp);
+  if (nchunks > 1)
+    permute_heads_kernel<NP><<<(unsigned)grid, PERMUTE_THREADS, 0, st>>>(
+        w, cyc_off, cyc_slots, ncyc, moved, S, H);
   permute_kernel<NP><<<(unsigned)grid, PERMUTE_THREADS, 0, st>>>(
-      planes_of<NP>(wp), cyc_off, cyc_slots);
+      w, cyc_off, cyc_slots, ncyc, moved, S, H);
   return (int)cudaGetLastError();
 }
 
@@ -362,18 +443,22 @@ int kv5_seqroute_level(void* w0, void* w1, void* w2, void* w3,
 #undef KV5_SEQROUTE
 }
 
+// heads: 2 * ceil(moved / S) blocks a plane, laid out like W's planes
+// (NULL past nplanes; unused when one chunk holds every position).
 int kv5_block_permute(void* w0, void* w1, void* w2, void* w3,
                       const void* cyc_off, const void* cyc_slots, int ncyc,
-                      int nplanes, void* stream) {
+                      int moved, int S, void* h0, void* h1, void* h2,
+                      void* h3, int nplanes, void* stream) {
   void* const w[MAX_PLANES] = {w0, w1, w2, w3};
+  void* const h[MAX_PLANES] = {h0, h1, h2, h3};
   const int32_t* off = (const int32_t*)cyc_off;
   const int32_t* slots = (const int32_t*)cyc_slots;
   cudaStream_t st = (cudaStream_t)stream;
   switch (nplanes) {
-    case 1: return launch_permute<1>(w, off, slots, ncyc, st);
-    case 2: return launch_permute<2>(w, off, slots, ncyc, st);
-    case 3: return launch_permute<3>(w, off, slots, ncyc, st);
-    case 4: return launch_permute<4>(w, off, slots, ncyc, st);
+    case 1: return launch_permute<1>(w, off, slots, ncyc, moved, S, h, st);
+    case 2: return launch_permute<2>(w, off, slots, ncyc, moved, S, h, st);
+    case 3: return launch_permute<3>(w, off, slots, ncyc, moved, S, h, st);
+    case 4: return launch_permute<4>(w, off, slots, ncyc, moved, S, h, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

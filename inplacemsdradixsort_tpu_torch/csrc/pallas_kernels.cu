@@ -30,7 +30,7 @@ namespace {
 constexpr int SORT_THREADS = 1024;   // blocks that sort a shared tile
 constexpr int STEP_THREADS = 256;    // one global network step
 constexpr int STEP_BLOCKS = 65536;   // grid cap of a global step
-constexpr int COPY_THREADS = 256;    // compact / count
+constexpr int COPY_THREADS = 256;    // count
 
 // The regions one sort launch orders in place: region b holds m tuples
 // from element base(b) = start_rows[b] * 128 (or b * m when start_rows is
@@ -845,24 +845,127 @@ __global__ void __launch_bounds__(DIST_THREADS) distribute_kernel(
 }
 
 // -------------------------------------------------------------- compact
-// One block per segment: its len tuples from row start go to element off
-// (the exclusive prefix sum of the lengths) of the output.  The wrapper
-// refuses segments outside their arenas; the test below only keeps the
-// kernel inside them.
+// Output-tiled: block c writes output elements [c * span, (c + 1) *
+// span), span = compact_span(NP), whatever segments they come from, in
+// rounds of COMPACT_THREADS x COMPACT_VEC / NP vectors of 4 elements.
+// The wrapper's int64 table holds each segment's first source element
+// (nseg), the output offsets (nseg + 1: the exclusive prefix sum of the
+// lengths, then the total) and the segment of the first element of each
+// group of COMPACT_GROUP output elements (ngroups + 1, the last the last
+// segment).  Each thread finds the segment of each of its vectors
+// (COMPACT_THREADS vectors apart) by a binary search from the previous
+// one's (the first from its group's first segment), up to the next
+// group's first segment.  A vector inside one segment comes from the aligned 16-byte
+// source vector that holds its first element and the next one, which is
+// the next lane's when that lane's vector follows in the same segment (a
+// shuffle) and is loaded otherwise (a segment starts on a row, so
+// neither leaves the arena); every load of a round is issued before its
+// first store, and the vector is re-aligned in registers and stored as
+// one aligned vector.  A vector that spans segments or the total is
+// copied element by element; elements past the total are not written.
+// The wrapper refuses segments outside their arenas and totals past the
+// output; the kernel trusts the table.
+constexpr int COMPACT_THREADS = 256;
+constexpr int COMPACT_VEC = 8;       // vectors a thread a round, keys only
+
+// Output elements one block writes: four rounds keys only, one with a
+// value plane (the faster on the v1 engine's shapes).
+__host__ __device__ constexpr int compact_span(int np) {
+  return COMPACT_THREADS * COMPACT_VEC * 4 / np * (np == 1 ? 4 : 1);
+}
+// Output elements a first-segment entry of the table covers: whole blocks
+constexpr int COMPACT_GROUP = compact_span(1);
+static_assert(COMPACT_GROUP % compact_span(2) == 0, "blocks split a group");
+
+// The largest s in [lo, hi] with v[s] <= x, given v[lo] <= x.
+__device__ __forceinline__ int last_at_most(const long long* __restrict__ v,
+                                            int lo, int hi, long long x) {
+  while (lo < hi) {
+    const int m = (lo + hi + 1) >> 1;
+    if (v[m] <= x) lo = m; else hi = m - 1;
+  }
+  return lo;
+}
+
+// Elements ph..ph+3 of the eight in (a, b).
+__device__ __forceinline__ int4 funnel(const int4& a, const int4& b, int ph) {
+  switch (ph) {
+    case 0: return a;
+    case 1: return make_int4(a.y, a.z, a.w, b.x);
+    case 2: return make_int4(a.z, a.w, b.x, b.y);
+    default: return make_int4(a.w, b.x, b.y, b.z);
+  }
+}
+
 template <int NP>
-__global__ void __launch_bounds__(COPY_THREADS) compact_kernel(
-    Planes<NP> src, long long src_len, const int32_t* __restrict__ starts,
-    const int32_t* __restrict__ lens, const long long* __restrict__ offs,
-    Planes<NP> out, long long out_len) {
-  const long long ln = lens[blockIdx.x];
-  const long long base = (long long)starts[blockIdx.x] * LANES;
-  const long long off = offs[blockIdx.x];
-  if (ln <= 0 || base < 0 || off < 0 || base + ln > src_len ||
-      off + ln > out_len)
-    return;
-  for (long long i = threadIdx.x; i < ln; i += blockDim.x) {
+__global__ void __launch_bounds__(COMPACT_THREADS) compact_kernel(
+    Planes<NP> src, Planes<NP> out, const long long* __restrict__ tbl,
+    int nseg, long long total, int vec_ok) {
+  constexpr int V = COMPACT_VEC / NP;
+  constexpr int ROUND = COMPACT_THREADS * V * 4;
+  constexpr int SPAN = compact_span(NP);
+  const long long* __restrict__ base = tbl;
+  const long long* __restrict__ offs = tbl + nseg;
+  const long long* __restrict__ first = offs + nseg + 1;
+  const long long g = (long long)blockIdx.x * SPAN / COMPACT_GROUP;
+  const int lo = (int)first[g], hi = (int)first[g + 1];
+  const int lane = threadIdx.x & 31;
+  int seg = lo;
+  for (long long t0 = (long long)blockIdx.x * SPAN;
+       t0 < (long long)(blockIdx.x + 1) * SPAN && t0 < total; t0 += ROUND) {
+    // the source element of each vector's first element; -1: element by
+    // element; -2: past the total
+    long long from[V];
 #pragma unroll
-    for (int q = 0; q < NP; ++q) out.p[q][off + i] = src.p[q][base + i];
+    for (int k = 0; k < V; ++k) {
+      const long long o = t0 + 4LL * (k * COMPACT_THREADS + threadIdx.x);
+      from[k] = -2;
+      if (o < total) {
+        seg = last_at_most(offs, seg, hi, o);
+        from[k] = vec_ok && o + 4 <= offs[seg + 1]
+                      ? base[seg] + (o - offs[seg]) : -1;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      int4 a[V], b[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        a[k] = make_int4(0, 0, 0, 0);
+        if (from[k] >= 0)
+          a[k] = __ldg((const int4*)(src.p[q] + (from[k] & ~3LL)));
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const long long next = __shfl_down_sync(0xffffffffu, from[k], 1);
+        b[k].x = __shfl_down_sync(0xffffffffu, a[k].x, 1);
+        b[k].y = __shfl_down_sync(0xffffffffu, a[k].y, 1);
+        b[k].z = __shfl_down_sync(0xffffffffu, a[k].z, 1);
+        b[k].w = __shfl_down_sync(0xffffffffu, a[k].w, 1);
+        if (from[k] >= 0 && (from[k] & 3) &&
+            (lane == 31 || next != from[k] + 4))
+          b[k] = __ldg((const int4*)(src.p[q] + (from[k] & ~3LL)) + 1);
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (from[k] >= 0) {
+          const long long o = t0 + 4LL * (k * COMPACT_THREADS + threadIdx.x);
+          *(int4*)(out.p[q] + o) = funnel(a[k], b[k], (int)(from[k] & 3));
+        }
+      }
+    }
+    for (int k = 0; k < V; ++k) {
+      if (from[k] != -1) continue;
+      const long long o = t0 + 4LL * (k * COMPACT_THREADS + threadIdx.x);
+      const long long end = o + 4 < total ? o + 4 : total;
+      int s = lo;
+      for (long long e = o; e < end; ++e) {
+        s = last_at_most(offs, s, hi, e);
+        const long long at = base[s] + (e - offs[s]);
+#pragma unroll
+        for (int q = 0; q < NP; ++q) out.p[q][e] = src.p[q][at];
+      }
+    }
   }
 }
 
@@ -939,22 +1042,29 @@ int kv1_ragged_sort(void* keys, void* vals, long long len,
   }
 }
 
-int kv1_compact(void* keys, void* vals, long long src_len,
-                const void* starts_row, const void* lens, const void* offs,
-                int nseg, void* out_keys, void* out_vals, long long out_len,
-                int nplanes, void* stream) {
+// table: int64, nseg segment starts (elements), nseg + 1 output offsets,
+// ngroups + 1 first segments (compact_kernel); span and group must be
+// compact_span(nplanes) and COMPACT_GROUP, the wrapper's.
+int kv1_compact(void* keys, void* vals, const void* table, int nseg,
+                int nblocks, long long total, int span, int group,
+                void* out_keys, void* out_vals, int nplanes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (nplanes < 1 || nplanes > 2 || span != compact_span(nplanes) ||
+      group != COMPACT_GROUP || nseg <= 0 || nblocks < 0)
+    return (int)cudaErrorInvalidValue;
+  if (nblocks == 0) return (int)cudaGetLastError();
   void* const src[2] = {keys, vals};
   void* const out[2] = {out_keys, out_vals};
+  int vec_ok = 1;
+  for (int q = 0; q < nplanes; ++q)
+    if (((uintptr_t)src[q] | (uintptr_t)out[q]) & 15) vec_ok = 0;
+  const long long* tbl = (const long long*)table;
 #define KV1_COMPACT(NP)                                                     \
-  compact_kernel<NP><<<nseg, COPY_THREADS, 0, st>>>(                        \
-      planes_of<NP>(src), src_len, (const int32_t*)starts_row,              \
-      (const int32_t*)lens, (const long long*)offs, planes_of<NP>(out),     \
-      out_len)
+  compact_kernel<NP><<<nblocks, COMPACT_THREADS, 0, st>>>(                  \
+      planes_of<NP>(src), planes_of<NP>(out), tbl, nseg, total, vec_ok)
   switch (nplanes) {
     case 1: KV1_COMPACT(1); break;
-    case 2: KV1_COMPACT(2); break;
-    default: return (int)cudaErrorInvalidValue;
+    default: KV1_COMPACT(2); break;
   }
 #undef KV1_COMPACT
   return (int)cudaGetLastError();

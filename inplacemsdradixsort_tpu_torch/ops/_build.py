@@ -63,7 +63,7 @@ _SIGNATURES = {
     "kv1_distribute": [_P, _P, _LL, _P, _P, _P, _P, _P, _LL, _LL, _I, _LL,
                        _I, _P],
     "kv1_ragged_sort": [_P, _P, _LL, _P, _P, _I, _LL, _I, _P],
-    "kv1_compact": [_P, _P, _LL, _P, _P, _P, _I, _P, _P, _LL, _I, _P],
+    "kv1_compact": [_P, _P, _P, _I, _I, _LL, _I, _I, _P, _P, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

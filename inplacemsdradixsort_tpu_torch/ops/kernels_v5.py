@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import kernels_v4 as kv4
@@ -36,6 +37,14 @@ BLK = BLKROWS * LANES          # elements per block
 # the CUDA seqroute stages this many elements of every plane per window
 # of tiles (64 MiB a plane; rounded down to whole tiles, at least one)
 STAGE_ELEMS = 1 << 24
+
+# the CUDA block_permute cuts the cycle table into chunks of S positions:
+# at least PERMUTE_MIN_CHUNK, about PERMUTE_CHUNKS_PER_SM chunks an SM,
+# and few enough that their head blocks (two a chunk) stay within
+# HEAD_BLOCKS a plane, the staging seqroute_level held just before
+PERMUTE_MIN_CHUNK = 16
+PERMUTE_CHUNKS_PER_SM = 4
+HEAD_BLOCKS = STAGE_ELEMS // BLK
 
 # launches of each kernel since the last reset (plain versions not counted)
 LAUNCHES = {"seqroute_level": 0, "block_permute": 0}
@@ -215,6 +224,45 @@ def block_permute_ref(w, cyc_off, cyc_slots):
     return w
 
 
+def permute_chunk(moved: int, sms: int) -> int:
+    """The chunk size S of the CUDA ``block_permute`` for ``moved``
+    positions on a card of ``sms`` SMs (see the constants above)."""
+    return max(PERMUTE_MIN_CHUNK, -(-moved // (PERMUTE_CHUNKS_PER_SM * sms)),
+               -(-2 * moved // HEAD_BLOCKS))
+
+
+def permute_plan(cyc_off, S: int):
+    """The CUDA ``block_permute``'s two launches for chunks of S
+    positions, in numpy (the kernels derive the same from ``cyc_off`` on
+    the card).  Position i of the cycle table is slot cyc[i]; chunk j
+    holds positions [j*S, (j+1)*S).
+
+    Returns (saves, src).  ``saves`` (k, 2) lists the (head, position)
+    pairs the first launch copies, head h taking the block of slot
+    cyc[position]: head 2j for chunk j's first position when no cycle
+    starts there, head 2j+1 for the head of the cycle that starts in
+    chunk j and ends past it.  ``src`` (moved,) says where position i's
+    new block comes from in the second launch: a position p >= 0 (the
+    block at slot cyc[p] when the chunk reaches i: p = i + 1, or the head
+    of a cycle that ends in the chunk it starts in, read before the chunk
+    writes it), or -1 - h for head h."""
+    off = np.asarray(cyc_off, np.int64)
+    moved = int(off[-1])
+    i = np.arange(moved)
+    c = np.searchsorted(off, i, side="right") - 1
+    start, end = off[c], off[c + 1]
+    last = i + 1 == end
+    src = np.where(last, start, i + 1)
+    src = np.where(~last & ((i + 1) % S == 0), -1 - 2 * ((i + 1) // S), src)
+    src = np.where(last & (start // S != i // S), -2 - 2 * (start // S), src)
+    j = np.arange(S, moved, S)
+    first = j[~np.isin(j, off)]
+    cross = off[:-1][off[:-1] // S != (off[1:] - 1) // S]
+    saves = np.concatenate([np.stack([2 * (first // S), first], 1),
+                            np.stack([2 * (cross // S) + 1, cross], 1)])
+    return saves, src
+
+
 # ---------------------------------------------------------- kernels
 
 def seqroute_level(w: Sequence[torch.Tensor], meta: torch.Tensor,
@@ -303,19 +351,33 @@ def block_permute(w: Sequence[torch.Tensor], cyc_off: torch.Tensor,
 
     Replaces ``kernels_v5.py:362-533`` (``_permute_body``): the TPU streams
     one linearised schedule through a 16-slot read ring and 4 stage
-    buffers with DMA semaphores.  On the H100 cycles are independent, and
-    within a cycle every element offset of a block is a chain of its own.
-    Design: ``PERMUTE_SPLIT`` thread blocks per cycle, each owning a
-    slice of the block's offsets; a thread keeps the head's 16 bytes of
-    every plane in registers, reads a few blocks ahead of its writes
-    (never a slot already written) and walks the cycle; no barrier and no
-    staging memory.  Long cycles run serially: their time is the cycle
-    length times a few read latencies.  Bound by one read and one write
-    of every moved block.  The result is deterministic (each element moves
-    once, to one place).  CUDA rather than Triton: each thread walks a
-    cycle of data-dependent length, reading ahead and writing behind
-    through a table of slots, a serial gather-scatter with no block
-    shape that Triton's model could tile.
+    buffers with DMA semaphores.  On the H100 every element offset of a
+    block is a chain of its own, and the move is bound by one read and
+    one write of every moved block; what keeps it from that bound is
+    latency when one long cycle (half the moved blocks at 2^30 pairs)
+    runs on a few SMs.  Design: the cycle table is cut into chunks of S
+    positions (``permute_chunk``: a few chunks an SM), so a chunk holds a
+    piece of a long cycle or several short ones, each chunk run by
+    ``PERMUTE_SPLIT`` thread blocks that own a slice of the block's
+    offsets; a thread walks its chunk reading a few blocks ahead of its
+    writes.  The only blocks one chunk reads and another writes are the
+    first block of a chunk that starts inside a cycle and the head of a
+    cycle that crosses a chunk's end: a first launch copies those to a
+    head scratch (two blocks a chunk at most, ``permute_plan``), the
+    second moves every chunk at once, so stream order is the only
+    ordering needed (no grid barrier, no atomics).  A cycle that ends in
+    the chunk it starts in keeps its head in registers, as one chunk
+    holding every position does (then the first launch is skipped).  The
+    chunk count comes from the table's length and the SM count and the
+    cycles are found on the card by binary search over ``cyc_off``, so
+    the tables stay on the card and nothing syncs.  The head scratch is
+    at most ``HEAD_BLOCKS`` blocks a plane, the staging buffer that
+    ``seqroute_level`` allocated for the same W and freed just before, so
+    v5's peak does not rise.  The result is deterministic (each element
+    moves once, to one place).  CUDA rather than Triton: each thread
+    walks a chunk of data-dependent cycles, reading ahead and writing
+    behind through a table of slots, a serial gather-scatter with no
+    block shape that Triton's model could tile.
     """
     w = _check_w("w", w)
     dev = w[0].device
@@ -324,7 +386,13 @@ def block_permute(w: Sequence[torch.Tensor], cyc_off: torch.Tensor,
     if dev.type == "cpu":
         return block_permute_ref(w, cyc_off, cyc_slots)
     ncyc = cyc_off.numel() - 1
-    if ncyc > 0:
+    moved = cyc_slots.numel()
+    if ncyc > 0 and moved > 0:
+        S = permute_chunk(moved, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        heads = torch.empty((len(w), 2 * -(-moved // S) * BLK),
+                            dtype=torch.int32, device=dev)
         _launch("block_permute", "kv5_block_permute", dev,
-                *_pp(w), _p(cyc_off), _p(cyc_slots), ncyc, len(w))
+                *_pp(w), _p(cyc_off), _p(cyc_slots), ncyc, moved, S,
+                *_pp(heads), len(w))
     return w

@@ -343,8 +343,8 @@ def msd_sort(keys: torch.Tensor, rids: Optional[torch.Tensor],
             cchr = 4 * chr_rows              # the reference's chunk
             out_rows = -(-n // LANES) + cchr + 1
             out_k, out_v = pk.compact(
-                kb, vb, _dev(np.array(seg_starts), dev),
-                _dev(np.array(seg_lens), dev), out_rows, cchr)
+                kb, vb, _host(np.array(seg_starts)),
+                _host(np.array(seg_lens)), out_rows, cchr)
         timer.sync(out_k)
 
     final_k = unbias_u32(out_k.reshape(-1)[:n])

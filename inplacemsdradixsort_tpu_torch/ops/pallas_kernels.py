@@ -26,8 +26,8 @@ the CPU.  ``distribute``, ``ragged_sort`` and ``compact`` raise
 outside its arena, before either version runs: a few reductions over
 the tables where they lie and one read of their flags, which costs a
 sync for tables on the card and none for tables on the host (then
-copied to the card with ``non_blocking``).  The engine passes
-``distribute`` and ``ragged_sort`` their tables on the host.
+copied to the card with ``non_blocking``).  The engine passes all three
+their tables on the host.
 """
 
 from __future__ import annotations
@@ -46,6 +46,12 @@ from .kernels_v4 import LANES, SENT, _check, _p, _spans
 # (8, 128) SMEM table; the port keeps its limit so both refuse the same
 # configs (range_bits <= 8)
 TABLE_ENTRIES = 8 * LANES
+
+# output elements one CUDA block of ``compact`` writes, by plane count,
+# and a first-segment entry of its table covers (csrc/pallas_kernels.cu's
+# compact_span and COMPACT_GROUP)
+COMPACT_SPAN = {1: 32768, 2: 4096}
+COMPACT_GROUP = 32768
 
 # launches of each kernel since the last reset (plain versions not counted)
 LAUNCHES = {"tile_sort": 0, "distribute": 0, "ragged_sort": 0,
@@ -115,6 +121,31 @@ def _refuse(name: str, *checks) -> None:
     for (msg, _), bad in zip(checks, flags):
         if bad:
             raise ValueError(f"{name}: {msg}")
+
+
+def _compact_checks(starts_row, lens, out_rows: int, numel: int):
+    """``compact``'s (message, flag) refusals over int64 tables (numpy on
+    the host, torch on the card)."""
+    return (("negative lengths, or lengths past the output's rows",
+             (lens < 0).any() | (lens.sum() > out_rows * LANES)),
+            ("a segment lies outside the arena",
+             _outside(starts_row * LANES, lens, numel)))
+
+
+def _compact_table(starts_row: np.ndarray, lens: np.ndarray, group: int):
+    """The CUDA ``compact``'s int64 table from host tables: each
+    segment's first source element, the output offsets (the exclusive
+    prefix sum of ``lens``, then the total) and the segment that holds
+    the first element of each group of ``group`` output elements, then
+    the last segment.  Returns (table, total)."""
+    nseg = lens.size
+    offs = np.zeros(nseg + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    # group g starts in segment s when ceil(offs[s] / group) <= g <
+    # ceil(offs[s + 1] / group)
+    first = np.repeat(np.arange(nseg), np.diff(-(-offs // group)))
+    return (np.concatenate([starts_row.astype(np.int64) * LANES, offs,
+                            first, [nseg - 1]]), int(offs[-1]))
 
 
 def _runs_on_host(slot_rows, run_starts, run_lens, tile_elems: int,
@@ -469,34 +500,46 @@ def compact(keys: torch.Tensor, vals: Optional[torch.Tensor],
 
     Replaces ``pallas_kernels.py:476-663`` (``_compact_kernel``).  The TPU
     writes whole rows, so it shifts each segment by its lane phase and
-    carries the partial row across grid steps, which must run in order;
-    with element-exact stores each segment is copied to its prefix offset
-    independently.  On the H100 it is a copy, bound by one read and one
-    write of each element.  Design: one block per segment; the offsets
-    are an exclusive prefix sum of ``lens`` made on the device.
+    carries the partial row across grid steps, which must run in order.
+    On the H100 it is a copy, bound by one read and one write of each
+    element.  Design: output-tiled, so the work does not depend on how
+    many segments there are or how long they are.  Each CUDA block writes
+    ``COMPACT_SPAN`` output elements with aligned 16-byte stores, in
+    rounds of 8 vectors a thread (4 with a value plane), all loads of a
+    round in flight before its stores; a vector's segment comes from a
+    binary search from the first segment of the block's group, and its
+    elements from the aligned 16-byte source vector that holds its first
+    element and the next one, which a shuffle takes from the next lane
+    where that lane's vector follows in the same segment (segments start
+    on rows).  Vectors that span segments are copied element by element.
+    The offsets and the first segment of every ``COMPACT_GROUP`` output
+    elements are made on the host (int64) and go to the card as one table
+    with ``non_blocking`` from pageable memory (a pinned copy costs a
+    page-locked allocation whenever the allocator's cache lacks one): no
+    sync with tables on the host (the engine's), one with tables on the
+    card (their check reads its flags there).  CUDA C++ rather than
+    Triton: table-driven data movement with data-dependent spans, beside
+    the v1 kernels that share its launcher and build.
     """
     dev = _check_arena("compact", keys, vals)
     _tables(dev, starts_row=starts_row, lens=lens)
     if starts_row.numel() != lens.numel():
         raise ValueError(f"compact: {starts_row.numel()} starts, "
                          f"{lens.numel()} lengths")
-    ln = _i64(lens)
-    _refuse("compact",
-            ("negative lengths, or lengths past the output's rows",
-             (ln < 0).any() | (ln.sum() > out_rows * LANES)),
-            ("a segment lies outside the arena",
-             _outside(_i64(starts_row) * LANES, ln, keys.numel())))
+    _refuse("compact", *_compact_checks(_i64(starts_row), _i64(lens),
+                                        out_rows, keys.numel()))
     if dev.type == "cpu":
         return compact_ref(keys, vals, starts_row, lens, out_rows, chr_rows)
     outs = [torch.empty((out_rows, LANES), dtype=torch.int32, device=dev)
             for _ in _planes(keys, vals)]
     ov = outs[1] if vals is not None else None
     if lens.numel():
-        lt = lens.long()
-        offs, starts_row, lens = _on(dev, torch.cumsum(lt, 0) - lt,
-                                     starts_row, lens)
-        _launch("compact", "kv1_compact", dev, _p(keys), _vp(vals),
-                keys.numel(), _p(starts_row), _p(lens), _p(offs),
-                lens.numel(), _p(outs[0]), _vp(ov), outs[0].numel(),
-                len(outs))
+        span = COMPACT_SPAN[len(outs)]
+        table, total = _compact_table(starts_row.cpu().numpy(),
+                                      lens.cpu().numpy(), COMPACT_GROUP)
+        if total:
+            table = torch.from_numpy(table).to(dev, non_blocking=True)
+            _launch("compact", "kv1_compact", dev, _p(keys), _vp(vals),
+                    _p(table), lens.numel(), -(-total // span), total,
+                    span, COMPACT_GROUP, _p(outs[0]), _vp(ov), len(outs))
     return outs[0], ov

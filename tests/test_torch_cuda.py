@@ -397,25 +397,57 @@ def test_v5_kernels_match_plain_versions(cuda, nvals):
                                       x[order])
 
 
+def _permute_case(cuda, src, nplanes, seed):
+    """block_permute of W's blocks by ``src`` (slot f takes slot
+    src[f]'s block): bitwise equal to the plain version and to the
+    gather."""
+    nslots = len(src)
+    w = tuple(torch.from_numpy(_keys(nslots * kv5.BLK, seed + p)
+                               .view(np.int32)).view(-1, LANES).to(cuda)
+              for p in range(nplanes))
+    off, slots = (torch.from_numpy(x).to(cuda)
+                  for x in engine_v5.permute_cycles(src))
+    got = kv5.block_permute(_clone(w), off, slots)
+    want = kv5.block_permute_ref(_clone(w), off, slots)
+    assert all(torch.equal(g, x) for g, x in zip(got, want)), (src, nplanes)
+    for g, x in zip(got, w):
+        assert torch.equal(g.view(nslots, -1), x.view(nslots, -1)[
+            torch.from_numpy(src).to(cuda)])
+
+
 def test_block_permute_long_cycle(cuda):
     """One cycle through every slot but a fixed one, and 2-cycles, on 3
-    planes: bitwise equal to the plain version."""
+    planes; then, against the chunks of S positions the CUDA kernel cuts
+    the cycle table into, one cycle of exactly S slots, of S + 1, of
+    several S plus a remainder, and several long cycles beside 2-cycles
+    (chunk boundaries inside cycles, at their starts and their ends), on
+    1, 2 and 4 planes: bitwise equal to the plain version."""
     nslots = 70
     src = np.arange(nslots)
     ring = [s for s in range(nslots) if s not in (5, 60, 61)]
     src[ring] = np.roll(ring, -1)
     src[[60, 61]] = [61, 60]
-    w = tuple(torch.from_numpy(_keys(nslots * kv5.BLK, 30 + p)
-                               .view(np.int32)).view(-1, LANES).to(cuda)
-              for p in range(3))
-    off, slots = (torch.from_numpy(x).to(cuda)
-                  for x in engine_v5.permute_cycles(src))
-    got = kv5.block_permute(_clone(w), off, slots)
-    want = kv5.block_permute_ref(_clone(w), off, slots)
-    assert all(torch.equal(g, x) for g, x in zip(got, want))
-    for g, x in zip(got, w):
-        assert torch.equal(g.view(nslots, -1), x.view(nslots, -1)[
-            torch.from_numpy(src).to(cuda)])
+    _permute_case(cuda, src, 3, 30)
+    S = kv5.PERMUTE_MIN_CHUNK
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cases = []
+    for length in (S, S + 1, 3 * S + 5):
+        src = np.arange(length + 3)
+        ring = np.arange(1, length + 1)
+        src[ring] = np.roll(ring, -1)
+        cases.append(src)
+    src = np.arange(6 * S)
+    pos = 0
+    for length in (2, 2 * S + 3, 2, 2, S - 1, 2, 2 * S, 2, 3):
+        ring = np.arange(pos, pos + length)
+        src[ring] = np.roll(ring, -1)
+        pos += length
+    cases.append(src)
+    for src in cases:
+        moved = int((src != np.arange(len(src))).sum())
+        assert kv5.permute_chunk(moved, sms) == S
+        for nplanes in (1, 2, 4):
+            _permute_case(cuda, src, nplanes, 31)
 
 
 @pytest.mark.parametrize("kind", ["pairs_u64", "u32", "maxheavy"])
@@ -635,6 +667,42 @@ def _ragged_case(rng, cuda, class_rows, pairs, nlive, ndummy, fill=None):
                                x[nlive * class_rows:])
 
 
+def _compact_edges(rng, cuda):
+    """compact against its plain version, keys and pairs, tables on the
+    host and on the card: empty segments, segments shorter than one
+    16-byte vector, segments that start the output at every 16-byte
+    phase, one CUDA block's output covering hundreds of tiny segments,
+    and totals that are no multiple of a block's output (one segment
+    longer than it)."""
+    rows = 512
+    kp = [torch.from_numpy(rng.integers(-2**31, 2**31, rows * LANES)
+                           .astype(np.int32)).view(rows, LANES).to(cuda)
+          for _ in range(2)]
+    tiny = rng.integers(0, 9, 400)
+    tiny[::7] = 0
+    cases = [([0, 2, 3, 5, 9], [0, 3, 128, 0, 7]),
+             ([0, 1, 2, 3, 4, 5, 6], [1, 2, 3, 4, 5, 6, 128]),
+             (np.arange(400), tiny),
+             ([0, 100, 300, 301], [12345, 0, 100, 4097]),
+             ([7], [pk.COMPACT_SPAN[1] + 1])]
+    for starts, lens in cases:
+        total = int(np.sum(lens))
+        out_rows = -(-total // LANES) + 1
+        for vals in (None, kp[1]):
+            for dev in ("cpu", cuda):
+                st = torch.tensor(np.asarray(starts), dtype=torch.int32,
+                                  device=dev)
+                ln = torch.tensor(np.asarray(lens), dtype=torch.int32,
+                                  device=dev)
+                want = pk.compact_ref(kp[0], vals, st, ln, out_rows)
+                got = pk.compact(kp[0], vals, st, ln, out_rows)
+                for g, x in zip(got, want):
+                    if x is not None:
+                        assert torch.equal(g.view(-1)[:total],
+                                           x.view(-1)[:total]), \
+                            (starts, lens, vals is None, dev)
+
+
 def test_v1_ragged_edges_and_sort_vmem(cuda):
     """ragged_sort leaves pad-0 dummy buckets alone (here all pointing at
     one region that holds data), and sorts every class: one cluster of
@@ -642,8 +710,9 @@ def test_v1_ragged_edges_and_sort_vmem(cuda):
     above a cluster (runs merged by global steps and merge launches) and
     of a size that is no power of two, many live buckets before the
     dummies, all-equal buckets and pairs whose keys are SENT with values
-    below it, with tables on the host and on the card; sort_vmem is one
-    ragged_sort launch over the whole input.  Tables that place a live
+    below it, with tables on the host and on the card; compact's edges
+    (``_compact_edges``); sort_vmem is one ragged_sort launch over the
+    whole input.  Tables that place a live
     bucket, a run or a segment outside its arena raise ValueError on the
     card too, whether the tables lie on the card or on the host."""
     rng = np.random.default_rng(5)
@@ -669,6 +738,7 @@ def test_v1_ragged_edges_and_sort_vmem(cuda):
     _ragged_case(rng, cuda, 512, True, 3, 1, "equal")
     _ragged_case(rng, cuda, 1024, True, 3, 1, "sent")
     _ragged_case(rng, cuda, 2048, True, 2, 0, "sent")
+    _compact_edges(rng, cuda)
     for logn in (10, 15, 20):
         x = _keys((1 << logn) - 3, logn)
         pk.reset_launches()

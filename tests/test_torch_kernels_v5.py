@@ -10,7 +10,10 @@ Pallas kernels in interpret mode, at the reference tests' tiny geometry
   partition instead.
 - ``block_permute_ref`` applied along ``permute_cycles(src)`` equals the
   JAX ``block_permute(permute_schedule(src))`` bitwise (a random
-  permutation, back-to-back 2-cycles, three planes).
+  permutation, back-to-back 2-cycles, three planes), and so does the
+  CUDA kernel's plan (``permute_plan``) applied in numpy for several
+  chunk sizes: its head blocks saved first, then the chunks moved one
+  after another, last chunk first.
 - ``permute_cycles`` covers every moved slot once; ``canonical_regions``
   is blind to the order inside a stream and to nothing else.
 
@@ -188,6 +191,27 @@ def _perm_cases():
             "three_planes": (rng.permutation(9), 3)}
 
 
+def _apply_plan(blocks, off, slots, S):
+    """``permute_plan`` applied in numpy to (slots, ...) blocks: the first
+    launch's head copies, then chunk by chunk (last first: chunks are
+    independent) each position in order, a cycle's head read from
+    ``blocks`` as the chunk reaches the cycle's start."""
+    saves, src = tk5.permute_plan(off, S)
+    b = blocks.copy()
+    heads = {int(h): b[slots[p]].copy() for h, p in saves}
+    starts = set(off[:-1].tolist())
+    moved = len(slots)
+    for j in reversed(range(-(-moved // S))):
+        head = None
+        for i in range(j * S, min(j * S + S, moved)):
+            if i in starts:
+                head = b[slots[i]].copy()
+            p = int(src[i])
+            b[slots[i]] = heads[-1 - p] if p < 0 else \
+                b[slots[p]].copy() if p == i + 1 else head
+    return b
+
+
 @pytest.mark.parametrize("case", list(_perm_cases()))
 def test_block_permute_matches_jax(case):
     perm, nplanes = _perm_cases()[case]
@@ -206,6 +230,12 @@ def test_block_permute_matches_jax(case):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
         np.testing.assert_array_equal(
             t.numpy().reshape(nslots, -1), d.reshape(nslots, -1)[perm])
+        for S in (1, 2, 3, 5, len(slots)):
+            saves, _ = tk5.permute_plan(off, S)
+            assert len(saves) <= 2 * -(-len(slots) // S)
+            np.testing.assert_array_equal(
+                _apply_plan(d.reshape(nslots, -1), off, slots, S),
+                np.asarray(j).reshape(nslots, -1))
 
 
 def test_permute_cycles_cover_moved_slots():

@@ -223,7 +223,8 @@ def test_v1_refuses_bad_configs_and_tables():
     ``distribute``'s table limit 3 * R <= 1024, which the reference
     asserts (range_bits <= 8).  Tables that place a run, slot, live
     bucket or segment outside its arena raise ValueError before either
-    version runs; pad-0 dummy buckets may point anywhere."""
+    version runs, with the same message whether ``compact``'s tables lie
+    on the host or on the card; pad-0 dummy buckets may point anywhere."""
     with pytest.raises(ValueError, match="num_ranges"):
         tpk.distribute(_t(np.zeros((8, LANES))), None,
                        *(_t(np.zeros((1, 512))),) * 3, 16, TR)
@@ -244,6 +245,16 @@ def test_v1_refuses_bad_configs_and_tables():
                                ([0, 8], [1024, 1024], "lengths")):
         with pytest.raises(ValueError, match=what):
             tpk.compact(k, None, _t(starts), _t(lens), 8)
+        # the checks of tables on the card (torch reductions, their flags
+        # read at once) refuse with the same message as those on the host
+        msgs = []
+        for st, ln in ((np.array(starts, np.int64), np.array(lens, np.int64)),
+                       (torch.tensor(starts).long(), torch.tensor(lens).long())):
+            with pytest.raises(ValueError) as e:
+                tpk._refuse("compact", *tpk._compact_checks(
+                    st, ln, 8, k.numel()))
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1] and what in msgs[0]
     cfg = SortConfig()
     assert (cfg.tile_elems, cfg.block_rows, cfg.range_bits,
             cfg.tile_rows) == (1 << 15, 8, 8, 256)
