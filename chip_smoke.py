@@ -88,20 +88,26 @@ equal to the kernel's (the library time; the port never calls it):
 ``index_select`` for ``splice_runs``, ``block_permute`` (W's blocks, on
 the pre-launch copy), ``distribute`` and ``compact`` (gather indices
 built outside the timed call); ``torch.sort`` for keys-only
-``tile_sort`` launches (by row of tiles) and keys-only ``ragged_sort``,
-``terminal_sort_write`` and ``terminal_write`` launches (the buckets
-gathered, outside the timed call, into rows of class_rows*128 or
-cap_rows*128 with SENT after each bucket's pad, then sorted by row);
+``tile_sort`` launches (by row of tiles), keys-only ``ragged_sort``
+launches and the 1- and 2-plane ``terminal_sort_write`` and
+``terminal_write`` launches (the buckets gathered, outside the timed
+call, into rows of class_rows*128 or cap_rows*128 with SENT after each
+bucket's pad, two planes packed into order-preserving int64 words
+(key << 32) | (val + 2^31), then sorted by row; summed by plane count
+at the end);
 ``torch.bincount`` of tile * 2^bits + digit for ``hist_level.digit``; a
 stable ``torch.sort`` of (tile, digit) keys for ``route_level.digit``
 (the order of the partition; the planes gathered by it must equal the
 runs' real prefixes).  Where the library call
 covers only some launches, the JSON record gives their count
 (``library_calls``) and the kernel's time on them
-(``library_kernel_ms``) beside ``library_ms``.  ``compact`` and
-``block_permute`` also report their launch alone (CUDA events around the
-C launcher, without the wrapper's host work and uploads) as
-``launch_ms``, per call in the log and summed in the JSON record.  Then:
+(``library_kernel_ms``) beside ``library_ms``.  ``compact``,
+``block_permute``, ``route_level.digit``, ``terminal_write`` and
+``terminal_sort_write`` also report their launch alone (CUDA events
+around the C launcher, without the wrapper's host work, uploads and
+syncs) as ``launch_ms``, per call in the log and summed in the JSON
+record; the log gives each terminal launch's path and cluster size
+(``kernels_v4.terminal_path``) and its resident clusters.  Then:
 the port's peak memory
 in a second sort, its time against what a user would otherwise run
 (``torch.sort`` on the keys; stable, plus a gather of the rids), and
@@ -239,7 +245,8 @@ KERNELS = {
 }
 # kernels whose launch alone (CUDA events around the C launcher, the
 # wrapper's host work and uploads outside) is timed beside the wrapper
-LAUNCH_TIMED = ("compact", "block_permute")
+LAUNCH_TIMED = ("compact", "block_permute", "route_level.digit",
+                "terminal_write", "terminal_sort_write")
 LANES = 128
 BLK = 256 * LANES                  # v5's exchange block, in elements
 # the wrapper functions behind the KERNELS entries
@@ -710,15 +717,48 @@ def library_route_digit(m, a, out, _):
     return ms
 
 
+def _bucket_rows(m, planes, rows, lens, width):
+    """The buckets of ``planes`` (flat, 1 or 2) from element ``rows`` on,
+    ``lens`` each, gathered into rows of ``width`` elements with SENT
+    after each bucket (outside any timed call): the keys for one plane;
+    for two, int64 words (key << 32) | (val + 2^31), whose signed order
+    is the (key, val) order."""
+    e = torch.arange(width, device=rows.device)
+    n = planes[0].numel()
+    idx = torch.where(e[None, :] < lens[:, None], rows[:, None] + e[None, :],
+                      n)
+    ext = [torch.cat([p.reshape(-1), p.new_full((1,), m.kv4.SENT)])
+           for p in planes]
+    if len(planes) == 1:
+        return ext[0][idx]
+    mat = ext[0][idx].long() << 32
+    mat |= ext[1][idx].long() - BIAS
+    return mat
+
+
+def _sorted_planes(vals, nplanes, unbias):
+    """The planes of ``_bucket_rows``' sorted rows, unbiased if asked."""
+    if nplanes == 1:
+        outs = [vals]
+    else:
+        outs = [(vals >> 32).to(torch.int32),
+                ((vals & 0xFFFFFFFF) + BIAS).to(torch.int32)]
+    if unbias:
+        for o in outs:
+            o ^= BIAS
+    return outs
+
+
 def library_terminal(m, a, out, before):
-    """Keys-only launches: ``torch.sort(x, dim=1)`` of the launch's mode-0
-    buckets gathered (not timed) into rows of cap_rows*128 elements,
-    SENT after each bucket's min(occ, cap_rows)*128, as row 8's
-    yardstick; each row's first ``written`` values (unbiased as the call
-    asks, outside the timed call) must equal the kernel's output at the
-    bucket's offset.  Multi-plane launches: None (no one call sorts
-    tuples)."""
-    if len(a["srcs"]) != 1:
+    """Launches of 1 or 2 planes: ``torch.sort(x, dim=1)`` of the launch's
+    mode-0 buckets gathered (not timed) into rows of cap_rows*128
+    elements, SENT after each bucket's min(occ, cap_rows)*128, as row 8's
+    yardstick (two planes packed into order-preserving int64 words,
+    ``_bucket_rows``); each row's first ``written`` tuples (unpacked and
+    unbiased as the call asks, outside the timed call) must equal the
+    kernel's output at the bucket's offset.  3-4 planes: None (no one
+    call sorts those tuples)."""
+    if len(a["srcs"]) > 2:
         return None
     bt, sel = m.kv4._selected(a["btbl"], a["class_id"])
     src = a["srcs"][0].reshape(-1)
@@ -728,23 +768,18 @@ def library_terminal(m, a, out, before):
     if not bool(live.any()):
         return None
     width = a["cap_rows"] * LANES
-    rows, lens = bt[live, 0] * LANES, lens[live]
-    e = torch.arange(width, device=rows.device)
-    ext = torch.cat([src, src.new_full((1,), m.kv4.SENT)])
-    mat = ext[torch.where(e[None, :] < lens[:, None],
-                          rows[:, None] + e[None, :], src.numel())]
-    del ext
+    mat = _bucket_rows(m, a["srcs"], bt[live, 0] * LANES, lens[live], width)
     lib, ms = _plain(torch.sort, mat, 1)
     del mat
-    vals = lib.values
-    if a["unbias_output"]:
-        vals ^= BIAS
-    w = torch.minimum(bt[live, 2], lens)
+    vals = _sorted_planes(lib.values, len(a["srcs"]), a["unbias_output"])
+    del lib
+    w = torch.minimum(bt[live, 2], lens[live])
     flat = torch.arange(w.numel(), device=w.device).repeat_interleave(w) \
         * width + m.kv4._spans(torch.zeros_like(w), w)
     pos = m.kv4._spans(bt[live, 5], w)
-    assert torch.equal(vals.view(-1)[flat], out[0].view(-1)[pos]), \
-        "terminal torch.sort differs"
+    for v, o in zip(vals, out):
+        assert torch.equal(v.view(-1)[flat], o.view(-1)[pos]), \
+            "terminal torch.sort differs"
     return ms
 
 
@@ -922,38 +957,30 @@ def check_terminal_v3(m, a, out, _):
 
 
 def library_terminal_v3(m, a, out, _):
-    """Keys-only launches: ``torch.sort(x, dim=1)`` of the mode-0 buckets
-    gathered (not timed) into rows of cap_rows*128 elements, SENT after
-    each bucket's min(occ, cap_rows)*128; each row's first ``written``
-    values (unbiased as the call asks, outside the timed call) must equal
-    the kernel's output at the bucket's offset.  Pairs: no one call sorts
-    by (key, val), so None."""
-    if a["vsrc"] is not None:
-        return None
+    """``torch.sort(x, dim=1)`` of the mode-0 buckets gathered (not timed)
+    into rows of cap_rows*128 elements, SENT after each bucket's
+    min(occ, cap_rows)*128 (pairs packed into order-preserving int64
+    words, ``_bucket_rows``); each row's first ``written`` tuples
+    (unpacked and unbiased as the call asks, outside the timed call)
+    must equal the kernel's output at the bucket's offset."""
     bt, eff = _v3_written(a)
     live = (bt[:, 3] == 0) & (eff > 0)
     width = a["cap_rows"] * LANES
-    rows = bt[live, 0] * LANES
-    lens = bt[live, 1].clamp(0, a["cap_rows"]) * LANES
-    e = torch.arange(width, device=rows.device)
-    src = a["src"].reshape(-1)
-    ext = torch.cat([src, src.new_full((1,), m.kv4.SENT)])
-    idx = torch.where(e[None, :] < lens[:, None], rows[:, None] + e[None, :],
-                      src.numel())
-    mat = ext[idx]
-    del idx, ext
+    planes = _pair_planes((a["src"], a["vsrc"]))
+    mat = _bucket_rows(m, planes, bt[live, 0] * LANES,
+                       bt[live, 1].clamp(0, a["cap_rows"]) * LANES, width)
     lib, t = _plain(torch.sort, mat, 1)
     del mat
-    vals = lib.values
-    if a["unbias_output"]:
-        vals ^= BIAS
+    vals = _sorted_planes(lib.values, len(planes), a["unbias_output"])
+    del lib
     w = eff[live]
     nb = w.numel()
     flat = torch.arange(nb, device=w.device).repeat_interleave(w) * width \
         + m.kv4._spans(torch.zeros_like(w), w)
     pos = m.kv4._spans(a["out_off"].long()[live], w)
-    assert torch.equal(vals.view(-1)[flat], out[0].view(-1)[pos]), \
-        "terminal torch.sort differs"
+    for v, o in zip(vals, _pair_planes(out)):
+        assert torch.equal(v.view(-1)[flat], o.view(-1)[pos]), \
+            "terminal torch.sort differs"
     return t
 
 
@@ -1292,11 +1319,28 @@ class Checker:
                 extra["ntiles"] = a["tile_tbl"].shape[0]
                 extra["children"] = a["dst_start"].numel()
                 extra["over"] = int(out[5][0].item())
+            if name in ("terminal_write", "terminal_sort_write") \
+                    and hasattr(self.mods.kv4, "terminal_path"):
+                # the path and CTAs a bucket the class's size picks
+                path, ctas = self.mods.kv4.terminal_path(planes,
+                                                         a["cap_rows"])
+                extra["path"] = f"{path}/{ctas}"
+                if path == "cluster":
+                    extra["resident"] = self.mods.kv4.terminal_resident(
+                        planes, a["cap_rows"])
             if name == "terminal_sort_write":
                 bt = a["btbl"]
                 extra["buckets"] = int((bt[:, 2] > 0).sum().item())
                 extra["fill_buckets"] = int(((bt[:, 3] != 0)
                                              & (bt[:, 2] > 0)).sum().item())
+                if hasattr(self.mods.kv4, "terminal_geometry"):
+                    # sorted buckets on half the class's network or less
+                    lr = self.mods.kv4.terminal_geometry(
+                        planes, a["cap_rows"])[0]
+                    m = bt[:, 1].long().clamp(max=a["cap_rows"]) * 128
+                    extra["half_net"] = int(((bt[:, 3] == 0) & (bt[:, 2] > 0)
+                                             & (m <= 1 << (lr - 1)))
+                                            .sum().item())
                 self.fill_buckets[self.label] = \
                     self.fill_buckets.get(self.label, 0) \
                     + extra["fill_buckets"]
@@ -1976,6 +2020,18 @@ def main():
               f"{t['library_calls']} checked launches, whose kernel time is "
               f"{t['library_kernel_ms']:.4f} ms (all checked launches: "
               f"{t['ms']:.4f} ms)")
+    # the library comparison by plane count (keys-only launches apart)
+    by_planes = {}
+    for (_, name, planes), r in checker.by_input.items():
+        if name in LIBRARY and r["lib"]:
+            b = by_planes.setdefault((name, planes), [0.0, 0.0, 0])
+            b[0] += r["lib"]
+            b[1] += r["ms"]
+            b[2] += r["calls"]
+    for (name, planes), (lib, ms, calls) in sorted(by_planes.items()):
+        print(f"library {name} planes={planes}: {lib:.4f} ms against the "
+              f"kernel's {ms:.4f} ms over the {calls} checked launches of "
+              f"the inputs where the library call ran")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

@@ -16,14 +16,11 @@
 // ops/pallas_kernels.py; the notes there say which TPU kernel each
 // replaces and what bounds it on the H100.
 
-#include <cooperative_groups.h>
 #include <limits.h>
 
 #include <algorithm>
 
-#include "bitonic.cuh"
-
-namespace cg = cooperative_groups;
+#include "cluster_sort.cuh"
 
 namespace {
 
@@ -180,61 +177,15 @@ int sort_planes(void* keys, void* vals, const Regions& r, long long nb,
 // ---------------------------------------------------------- ragged_sort
 // One thread-block cluster per (live bucket, run): the run's tuples stay
 // in the shared memory of the cluster's C CTAs (128 KiB each: 2^15 keys
-// or 2^14 pairs) from one read to one write, and a bitonic network sorts
-// them there.  A run is the whole bucket up to 8 CTAs (2^18 keys, 2^17
-// pairs); a larger bucket is sorted as runs of that size which global
-// steps and merge launches then join.
-//
-// A tuple is one word in shared memory and in registers: a key (int32,
-// signed order), or a (key, val) pair packed into a uint64 whose
-// unsigned order is the pair's order, so both sort with min and max.
-// The network is addressed by the bits of a tuple's index e in the run.
-// A pass loads 2^W tuples into each thread's registers (W = 5 keys-only,
-// 4 pairs): a group, the tuples whose index bits outside a window [wlo,
-// wlo + W) are equal.  It runs every step whose partner distance is a
-// bit of the window in registers and stores the group back.  A step of
-// merge stage kappa compares e with e ^ 2^b and puts the smaller tuple
-// at the lower index where bit kappa of e is 0, the larger one where it
-// is 1; a tuple whose bit kappa is 1 is complemented on load and store
-// (which reverses the order), so every step in registers is an
-// ascending min/max.  Stage kappa takes ceil(kappa / W) passes, so 2^17
-// keys take 34 passes.  Local passes (the window below the CTA's bits)
-// have their window and directions fixed at compile time, so a group's
-// shared-memory addresses are one base and immediate offsets; one
-// __syncthreads separates them.  The passes whose steps cross CTAs (the
-// first pass of each stage above a CTA: 3 for 2^18 keys) read and write
-// the other CTAs' shared memory (distributed shared memory) between
-// cluster barriers.  Tuples equal under the order are identical (every
-// plane is compared), so any correct network gives the plain version's
-// result bit for bit.
-constexpr int CS_THREADS = 512;
-constexpr int CS_MAX_CTAS = 8;
-constexpr int CS_UNROLL = 4;   // 16-byte loads in flight per thread
-
-template <int NP> struct CsWord { using type = int32_t; };
-template <> struct CsWord<2> { using type = unsigned long long; };
-template <int NP> using cs_t = typename CsWord<NP>::type;
-
-template <int NP>
-__host__ __device__ constexpr int cs_w() { return NP == 1 ? 5 : 4; }
-// log2 of the tuples one CTA holds at most (128 KiB of words)
-template <int NP>
-__host__ __device__ constexpr int cs_cta_log() { return NP == 1 ? 15 : 14; }
-
-// Shared-memory word of tuple l: one pad word after every 128 bytes, so
-// a warp reading 32 consecutive tuples, or one tuple from each of 32
-// consecutive groups, meets no bank twice; and a tuple e0 + x with
-// disjoint bits lies at cs_pad(e0) + cs_pad(x).
-template <int NP>
-__host__ __device__ constexpr int cs_pad(int l) {
-  return l + (l >> (NP == 1 ? 5 : 4));
-}
-
-__device__ __forceinline__ unsigned long long cs_pack(int32_t k, int32_t v) {
-  return ((unsigned long long)(uint32_t)(k ^ BIAS) << 32) |
-         (uint32_t)(v ^ BIAS);
-}
-
+// or 2^14 pairs) from one read to one write, and the bitonic network of
+// csrc/cluster_sort.cuh sorts them there.  A run is the whole bucket up
+// to 8 CTAs (2^18 keys, 2^17 pairs); a larger bucket is sorted as runs
+// of that size which global steps and merge launches then join.  A pair
+// is one uint64 word (cs_pack) whose unsigned order is the pair's order.
+// The network is shared with the terminal sort of csrc/kernels_v4.cu;
+// this kernel's policy: load a run in place (tuples at or past the
+// bucket's pad as SENT, the slack past the pad not read), sort, and
+// store it back in place, every tuple of the run below m.
 struct CsArgs {
   const int32_t* start_rows;   // bucket b starts at row start_rows[b]
   const int32_t* live;         // its pad: tuples at or past it are SENT
@@ -246,248 +197,16 @@ struct CsArgs {
   int merge;                   // 0: sort each run; 1: merge-tail steps only
 };
 
-// One ascending network step on a group's registers: partner distance
-// 2^B in register indices, the smaller tuple to the lower one.
-template <int NP, int B>
-__device__ __forceinline__ void cs_step(cs_t<NP> (&x)[1 << cs_w<NP>()]) {
-#pragma unroll
-  for (int r = 0; r < (1 << cs_w<NP>()); ++r)
-    if (!(r & (1 << B))) {
-      const cs_t<NP> a = x[r], b = x[r | (1 << B)];
-      x[r] = min(a, b);
-      x[r | (1 << B)] = max(a, b);
-    }
-}
-
-template <int NP>
-__device__ __forceinline__ void cs_step_at(cs_t<NP> (&x)[1 << cs_w<NP>()],
-                                           int b) {
-  switch (b) {
-    case 0: cs_step<NP, 0>(x); break;
-    case 1: cs_step<NP, 1>(x); break;
-    case 2: cs_step<NP, 2>(x); break;
-    case 3: cs_step<NP, 3>(x); break;
-    default:
-      if constexpr (cs_w<NP>() > 4) cs_step<NP, 4>(x);
-      break;
-  }
-}
-
-// Complement of register r's tuple in a window whose direction bit is
-// bit P of r (P < W), or the group's flip gflip (P == W).
-template <int NP, int P>
-__device__ __forceinline__ cs_t<NP> cs_flip(int r, cs_t<NP> gflip) {
-  return P == cs_w<NP>() ? gflip : ((r >> P) & 1 ? ~cs_t<NP>(0) : 0);
-}
-
-// First tuple of group g of a window at wlo.
-template <int W>
-__device__ __forceinline__ int cs_e0(int g, int wlo) {
-  return ((g >> wlo) << (wlo + W)) | (g & ((1 << wlo) - 1));
-}
-
-// A local pass of stage kappa over window [WLO, WLO + W), steps on bits
-// hi..stop; the direction bit kappa is bit P of the window (P < W) or
-// above it (P == W, from the group's index in the run, CTA rank
-// included).  sm is the CTA's words.
-template <int NP, int WLO, int P>
-__device__ __forceinline__ void cs_local(cs_t<NP>* sm, int sb, int rank,
-                                         int hi, int stop, int kappa) {
-  constexpr int W = cs_w<NP>(), T = 1 << W;
-  const int mask = (1 << sb) - 1;
-  for (int gi = threadIdx.x; gi < (1 << (sb - W)); gi += blockDim.x) {
-    const int e0 = cs_e0<W>((rank << (sb - W)) + gi, WLO);
-    const cs_t<NP> gflip = P == W ? -(cs_t<NP>)((e0 >> kappa) & 1) : 0;
-    // an ascending group (gflip 0) skips the complement
-    const bool flip = P < W || gflip;
-    cs_t<NP>* base = sm + cs_pad<NP>(e0 & mask);
-    cs_t<NP> x[T];
-#pragma unroll
-    for (int r = 0; r < T; ++r) x[r] = base[cs_pad<NP>(r << WLO)];
-    if (flip) {
-#pragma unroll
-      for (int r = 0; r < T; ++r) x[r] ^= cs_flip<NP, P>(r, gflip);
-    }
-    for (int b = hi - WLO; b >= stop - WLO; --b) cs_step_at<NP>(x, b);
-    if (flip) {
-#pragma unroll
-      for (int r = 0; r < T; ++r) x[r] ^= cs_flip<NP, P>(r, gflip);
-    }
-#pragma unroll
-    for (int r = 0; r < T; ++r) base[cs_pad<NP>(r << WLO)] = x[r];
-  }
-}
-
-template <int NP, int WLO>
-__device__ __forceinline__ bool cs_local_p(cs_t<NP>* sm, int sb, int rank,
-                                           int hi, int stop, int kappa) {
-  constexpr int W = cs_w<NP>();
-  const int p = kappa - WLO;
-  if (p == 1)
-    cs_local<NP, WLO, 1>(sm, sb, rank, hi, stop, kappa);
-  else if (p == 2)
-    cs_local<NP, WLO, 2>(sm, sb, rank, hi, stop, kappa);
-  else if (p == 3)
-    cs_local<NP, WLO, 3>(sm, sb, rank, hi, stop, kappa);
-  else if (W > 4 && p == 4)
-    cs_local<NP, WLO, (W > 4 ? 4 : W)>(sm, sb, rank, hi, stop, kappa);
-  else
-    cs_local<NP, WLO, W>(sm, sb, rank, hi, stop, kappa);
-  return true;
-}
-
-// The local pass at a window base of 0, W, 2W or a full CTA's top
-// window (every local pass of a CTA that holds its 128 KiB); false for
-// other bases.
-template <int NP>
-__device__ __forceinline__ bool cs_local_fixed(cs_t<NP>* sm, int sb,
-                                               int rank, int wlo, int hi,
-                                               int stop, int kappa) {
-  constexpr int W = cs_w<NP>(), TOP = cs_cta_log<NP>() - W;
-  if (wlo == 0) return cs_local_p<NP, 0>(sm, sb, rank, hi, stop, kappa);
-  if (wlo == W) return cs_local_p<NP, W>(sm, sb, rank, hi, stop, kappa);
-  if (wlo == 2 * W)
-    return cs_local_p<NP, 2 * W>(sm, sb, rank, hi, stop, kappa);
-  if (wlo == TOP) return cs_local_p<NP, TOP>(sm, sb, rank, hi, stop, kappa);
-  return false;
-}
-
-// A remote pass of a cluster of full CTAs over the run's top window
-// [WLO, WLO + W) (WLO + W = lr): group g's tuples are g + (r << WLO), in
-// CTA (r << WLO) >> SB at a fixed offset from the group's, so each
-// address is a mapped CTA base and an immediate offset.
-template <int NP, int WLO, int P>
-__device__ __forceinline__ void cs_remote(cs_t<NP>* const* words, int rank,
-                                          int hi, int stop) {
-  constexpr int W = cs_w<NP>(), T = 1 << W, SB = cs_cta_log<NP>();
-  constexpr int C = 1 << (WLO + W - SB), MASK = (1 << SB) - 1;
-  for (int gi = threadIdx.x; gi < (1 << (SB - W)); gi += blockDim.x) {
-    const int e0 = (rank << (SB - W)) + gi;     // below 2^WLO
-    cs_t<NP>* base[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) base[c] = words[c] + cs_pad<NP>(e0);
-    cs_t<NP> x[T];
-#pragma unroll
-    for (int r = 0; r < T; ++r)
-      x[r] = base[(r << WLO) >> SB][cs_pad<NP>((r << WLO) & MASK)] ^
-             cs_flip<NP, P>(r, 0);
-    for (int b = hi - WLO; b >= stop - WLO; --b) cs_step_at<NP>(x, b);
-#pragma unroll
-    for (int r = 0; r < T; ++r)
-      base[(r << WLO) >> SB][cs_pad<NP>((r << WLO) & MASK)] =
-          x[r] ^ cs_flip<NP, P>(r, 0);
-  }
-}
-
-template <int NP, int WLO>
-__device__ __forceinline__ bool cs_remote_p(cs_t<NP>* const* words,
-                                            int rank, int hi, int stop,
-                                            int kappa) {
-  constexpr int W = cs_w<NP>();
-  const int p = kappa - WLO;
-  if (p == 1)
-    cs_remote<NP, WLO, 1>(words, rank, hi, stop);
-  else if (p == 2)
-    cs_remote<NP, WLO, 2>(words, rank, hi, stop);
-  else if (p == 3)
-    cs_remote<NP, WLO, 3>(words, rank, hi, stop);
-  else if (W > 4 && p == 4)
-    cs_remote<NP, WLO, (W > 4 ? 4 : W)>(words, rank, hi, stop);
-  else
-    cs_remote<NP, WLO, W>(words, rank, hi, stop);
-  return true;
-}
-
-// The remote pass over the top window of a run of 2, 4 or 8 full CTAs;
-// false for other windows.
-template <int NP>
-__device__ __forceinline__ bool cs_remote_fixed(cs_t<NP>* const* words,
-                                                int sb, int lr, int rank,
-                                                int wlo, int hi, int stop,
-                                                int kappa) {
-  constexpr int W = cs_w<NP>(), SB = cs_cta_log<NP>();
-  if (sb != SB || wlo != lr - W) return false;
-  if (lr == SB + 1)
-    return cs_remote_p<NP, SB + 1 - W>(words, rank, hi, stop, kappa);
-  if (lr == SB + 2)
-    return cs_remote_p<NP, SB + 2 - W>(words, rank, hi, stop, kappa);
-  return cs_remote_p<NP, SB + 3 - W>(words, rank, hi, stop, kappa);
-}
-
-// Stages K..W of the first pass, over window [0, W): the direction bit
-// of stage k < W is bit k of r, of stage W bit 0 of the group.
-template <int NP, int K>
-__device__ __forceinline__ void cs_prefix_stage(
-    cs_t<NP> (&x)[1 << cs_w<NP>()], cs_t<NP> gflip) {
-  constexpr int W = cs_w<NP>(), T = 1 << W;
-  if constexpr (K <= W) {
-#pragma unroll
-    for (int r = 0; r < T; ++r)
-      x[r] ^= (K == 1 ? 0 : cs_flip<NP, K - 1>(r, gflip)) ^
-              cs_flip<NP, K>(r, gflip);
-#pragma unroll
-    for (int b = K - 1; b >= 0; --b) cs_step_at<NP>(x, b);
-    cs_prefix_stage<NP, K + 1>(x, gflip);
-  } else {
-#pragma unroll
-    for (int r = 0; r < T; ++r) x[r] ^= gflip;
-  }
-}
-
-template <int NP>
-__device__ __forceinline__ void cs_prefix(cs_t<NP>* sm, int sb) {
-  constexpr int W = cs_w<NP>(), T = 1 << W;
-  for (int g = threadIdx.x; g < (1 << (sb - W)); g += blockDim.x) {
-    cs_t<NP>* base = sm + cs_pad<NP>(g << W);
-    cs_t<NP> x[T];
-#pragma unroll
-    for (int r = 0; r < T; ++r) x[r] = base[r];
-    cs_prefix_stage<NP, 1>(x, -(cs_t<NP>)(g & 1));
-#pragma unroll
-    for (int r = 0; r < T; ++r) base[r] = x[r];
-  }
-}
-
-// The general pass, window and direction at run time: a remote window
-// (words[rank] is CTA rank's words, mapped into this CTA's view of the
-// cluster) or a local window at another base (words[0] this CTA's).
-// Each CTA takes an equal share of the groups.
-template <int NP, bool REMOTE>
-__device__ __forceinline__ void cs_pass(cs_t<NP>* const* words, int sb,
-                                        int rank, int wlo, int hi, int stop,
-                                        int kappa) {
-  constexpr int W = cs_w<NP>(), T = 1 << W;
-  const int mask = (1 << sb) - 1;
-  for (int gi = threadIdx.x; gi < (1 << (sb - W)); gi += blockDim.x) {
-    const int e0 = cs_e0<W>((rank << (sb - W)) + gi, wlo);
-    cs_t<NP> x[T];
-#pragma unroll
-    for (int r = 0; r < T; ++r) {
-      const int e = e0 | (r << wlo);
-      x[r] = words[REMOTE ? e >> sb : 0][cs_pad<NP>(e & mask)] ^
-             -(cs_t<NP>)((e >> kappa) & 1);
-    }
-    for (int b = hi - wlo; b >= stop - wlo; --b) cs_step_at<NP>(x, b);
-#pragma unroll
-    for (int r = 0; r < T; ++r) {
-      const int e = e0 | (r << wlo);
-      words[REMOTE ? e >> sb : 0][cs_pad<NP>(e & mask)] =
-          x[r] ^ -(cs_t<NP>)((e >> kappa) & 1);
-    }
-  }
-}
-
 // Sort mode: load the run (tuples at or past the bucket's pad as SENT,
 // tuples past m as virtual SENT that are never stored), sort it
 // ascending, store it.  Merge mode: load the run as it is and run the
-// steps of its last stage (distances run/2 .. 1, all ascending), which
-// finish a merge whose longer steps the global launches made.
+// steps of its last stage, which finish a merge whose longer steps the
+// global launches made.
 template <int NP>
 __global__ void __launch_bounds__(CS_THREADS, 1)
     cluster_sort_kernel(Planes<NP> a, CsArgs k) {
   extern __shared__ __align__(16) unsigned char cs_smem[];
-  __shared__ cs_t<NP>* rwords[CS_MAX_CTAS];
-  constexpr int W = cs_w<NP>(), U = CS_UNROLL;
+  constexpr int U = CS_UNROLL;
   const int cbits = k.lr - k.sb;
   const long long cid = blockIdx.x >> cbits;      // (bucket, run)
   const long long b = cid / k.nruns;
@@ -498,10 +217,9 @@ __global__ void __launch_bounds__(CS_THREADS, 1)
   if (pad <= 0 || base < 0 || base + k.m > k.len || r0 >= k.m) return;
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)(blockIdx.x & ((1 << cbits) - 1));
+  const CsView<NP> view = cs_view<NP>(cs_smem, cl, k.lr, k.sb, rank);
+  cs_u<NP>* sm = view.sm;
   const int S = 1 << k.sb;
-  cs_t<NP>* sm = (cs_t<NP>*)cs_smem;
-  if ((int)threadIdx.x < (1 << cbits))
-    rwords[threadIdx.x] = cl.map_shared_rank(sm, threadIdx.x);
   const long long x0 = r0 + ((long long)rank << k.sb);
   const long long lim = k.merge ? k.m : min(pad, k.m);
   bool vec = true;
@@ -538,70 +256,34 @@ __global__ void __launch_bounds__(CS_THREADS, 1)
       if (v >= (S >> 2)) break;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const bool in = x0 + 4 * v + c < lim;
-        if constexpr (NP == 1)
-          sm[cs_pad<NP>(4 * v) + c] = in ? w[u][0][c] : SENT;
-        else
-          sm[cs_pad<NP>(4 * v) + c] =
-              in ? cs_pack(w[u][0][c], w[u][1][c]) : ~0ULL;
+        const int i = cs_pad<NP>(4 * v) + c;
+        if (x0 + 4 * v + c < lim) {
+          int32_t t[NP];
+#pragma unroll
+          for (int q = 0; q < NP; ++q) t[q] = w[u][q][c];
+          cs_put<NP>(sm, i, view.ps, t);
+        } else {
+          cs_put_sent<NP>(sm, i, view.ps);
+        }
       }
     }
   }
-  // the passes, with a cluster barrier around every remote one
-  bool was_remote = cbits > 0;
-  auto barrier = [&](bool remote) {
-    if (remote) cl.sync(); else __syncthreads();
-  };
-  auto stage = [&](int kappa) {
-    for (int hi = kappa - 1; hi >= 0;) {
-      // steps on bits hi..stop, in a window inside the CTA where they
-      // fit, else in one that reaches into the cluster's bits
-      const int stop = hi / W * W;
-      const bool remote = hi >= k.sb;
-      const int wlo = min(stop, (remote ? k.lr : k.sb) - W);
-      barrier(remote || was_remote);
-      if (remote) {
-        if (!cs_remote_fixed<NP>(rwords, k.sb, k.lr, rank, wlo, hi, stop,
-                                 kappa))
-          cs_pass<NP, true>(rwords, k.sb, rank, wlo, hi, stop, kappa);
-      }
-      else if (!cs_local_fixed<NP>(sm, k.sb, rank, wlo, hi, stop, kappa))
-        cs_pass<NP, false>(&sm, k.sb, rank, wlo, hi, stop, kappa);
-      was_remote = remote;
-      hi = stop - 1;
-    }
-  };
-  if (k.merge) {
-    stage(k.lr);
-  } else {
-    barrier(was_remote);
-    cs_prefix<NP>(sm, k.sb);                      // stages 1..W
-    was_remote = false;
-    for (int kappa = W + 1; kappa <= k.lr; ++kappa) stage(kappa);
-  }
-  barrier(was_remote);
+  cs_network<NP>(view, cl, k.merge != 0);
   for (int v = threadIdx.x; v < (S >> 2); v += blockDim.x) {
     const long long x = x0 + 4 * v;
     if (x >= k.m) break;
-    int32_t w[NP][4];
+    int32_t w[4][NP];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const cs_t<NP> t = sm[cs_pad<NP>(4 * v) + c];
-      if constexpr (NP == 1) {
-        w[0][c] = t;
-      } else {
-        w[0][c] = (int32_t)(uint32_t)(t >> 32) ^ BIAS;
-        w[1][c] = (int32_t)(uint32_t)t ^ BIAS;
-      }
-    }
+    for (int c = 0; c < 4; ++c)
+      cs_get<NP>(sm, cs_pad<NP>(4 * v) + c, view.ps, w[c]);
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       int32_t* g = a.p[q] + base + x;
       if (vec) {
-        *(int4*)g = make_int4(w[q][0], w[q][1], w[q][2], w[q][3]);
+        *(int4*)g = make_int4(w[0][q], w[1][q], w[2][q], w[3][q]);
       } else {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) g[c] = w[q][c];
+        for (int c = 0; c < 4; ++c) g[c] = w[c][q];
       }
     }
   }
@@ -613,26 +295,9 @@ cudaError_t cluster_sort(const Planes<NP>& a, const Regions& r, long long nb,
                          int lr, int nruns, int merge, cudaStream_t st) {
   const int sb = std::min(lr, cs_cta_log<NP>());
   const long long grid = (nb * nruns) << (lr - sb);
-  if (grid > INT_MAX) return cudaErrorInvalidValue;
-  const size_t shm = sizeof(cs_t<NP>) * cs_pad<NP>(1 << sb);
-  cudaError_t err = cudaFuncSetAttribute(
-      cluster_sort_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shm);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)grid);
-  cfg.blockDim = dim3(CS_THREADS);
-  cfg.dynamicSmemBytes = shm;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1u << (lr - sb);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   const CsArgs k{r.start_rows, r.live, r.m, r.len, lr, sb, nruns, merge};
-  return cudaLaunchKernelEx(&cfg, cluster_sort_kernel<NP>, a, k);
+  return cs_launch(cluster_sort_kernel<NP>, grid, 1 << (lr - sb),
+                   cs_smem_bytes<NP>(sb), st, a, k);
 }
 
 // Sort every live bucket of r.  Up to 8 CTAs of tuples a bucket is one

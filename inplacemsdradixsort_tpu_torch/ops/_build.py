@@ -3,7 +3,9 @@ library: ``kernels_v4.cu`` (the v4 level, terminal and splice kernels,
 and the digit modes of the level kernels),
 ``kernels_v5.cu`` (the v5 in-place kernels), ``kernels_v3.cu`` (the v3
 partition level) and ``pallas_kernels.cu`` (the v1 kernels), which share
-``bitonic.cuh``.
+``bitonic.cuh``; ``cluster_sort.cuh``, the cluster-resident network of the
+v1 ``ragged_sort`` and the v4 terminal, is included by the first and the
+last.
 
 The library is built at first use on a CUDA tensor, never at import (the
 package imports on machines without ``nvcc``), by one ``nvcc -c`` per
@@ -32,7 +34,7 @@ CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{name}.cu"
                 for name in ("kernels_v4", "kernels_v5", "kernels_v3",
                              "pallas_kernels"))
-HEADERS = (CSRC / "bitonic.cuh",)
+HEADERS = (CSRC / "bitonic.cuh", CSRC / "cluster_sort.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -49,6 +51,9 @@ _SIGNATURES = {
     + [_LL, _I, _I, _I, _I, _I, _I, _I, _P],
     "kv4_terminal_write": _PLANES + [_LL, _P, _I] + _PLANES
     + [_LL, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+    "kv4_terminal_cluster": _PLANES + [_LL, _P, _I] + _PLANES
+    + [_LL, _I, _I, _I, _I, _I, _I, _P],
+    "kv4_terminal_resident": [_I, _I, _I],
     "kv4_splice_runs": _PLANES + [_LL, _P, _I] + _PLANES
     + [_LL, _I, _I, _I, _P],
     # kernels_v5.cu

@@ -42,7 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import kernels_v4 as kv4
-from .kernels_v4 import (BIAS, CHUNK_ROWS, LANES, SENT, TERM_TILE, _check,
+from .kernels_v4 import (BIAS, CHUNK_ROWS, LANES, SENT, _check,
                          _check_planes, _p, _pp)
 
 MAX_RMAX = 1024        # ranges a partition block holds in shared memory
@@ -366,13 +366,16 @@ def terminal_sort_write(src: torch.Tensor, vsrc: Optional[torch.Tensor],
     wrapper widens the table on the device to v4's 8 columns (src_row,
     occ, real, mode, fill, out_off, 0, 0), with mode 0's real clamped to
     cap_rows*128 as the reference clamps it, and launches the v4 terminal
-    kernel (``csrc/kernels_v4.cu``) rather than a third bitonic driver.
-    On the H100 it is bound, as that kernel is, by the passes its bitonic
-    network makes over global memory for buckets above the shared tile
-    (``TERM_TILE``; v3 buckets reach cap_rows*128 = 2^18 keys at n >=
-    2^28).  Sizing the global scratch costs one device sync per call, and
-    a pairs call checks on the device that no bucket is in mode 1 (v4's
-    kernel fills the key plane only), one more sync.  Counted under
+    (``kernels_v4.launch_terminal``) rather than a third bitonic driver:
+    the cluster path of ``csrc/kernels_v4.cu`` (one cluster a bucket, the
+    network of ``csrc/cluster_sort.cuh``; v3 buckets reach cap_rows*128 =
+    2^18 keys at n >= 2^28, 8 CTAs), or the global path with its scratch
+    and one sync where the capacity fits no cluster.  v3 plans its buckets
+    to 60% of cap_rows over a fudge of at least 1.2, about half of it, and
+    the cluster path sorts each bucket on the smallest power-of-two
+    network that holds it, over all the cluster's CTAs: a bucket of at
+    most half the capacity costs every CTA half the work.  A pairs call checks on the device that no bucket is in
+    mode 1 (v4's kernel fills the key plane only), one sync.  Counted under
     ``LAUNCHES["terminal_sort_write"]``, not under v4's count.
     """
     dev = src.device
@@ -401,13 +404,7 @@ def terminal_sort_write(src: torch.Tensor, vsrc: Optional[torch.Tensor],
         zero = torch.zeros_like(real)
         wide = torch.stack([btbl[:, 0], btbl[:, 1], real, mode, fillval,
                             out_off, zero, zero], 1).contiguous()
-        soff, nscratch = kv4._scratch_offsets(
-            wide, src.numel(), cap_rows, None, TERM_TILE[len(planes)])
-        scratch = torch.empty((len(planes), max(nscratch, 1)),
-                              dtype=torch.int32, device=dev)
-        _launch("terminal_sort_write", "kv4_terminal_write", dev,
-                *_pp(planes), src.numel(), _p(wide), nb, *_pp(outs),
-                outs[0].numel(), _p(scratch), _p(soff), scratch.shape[1],
-                len(planes), len(planes) - 1, int(unbias_output), cap_rows,
-                -1)
+        kv4.launch_terminal(_launch, "terminal_sort_write", planes, wide,
+                            outs, cap_rows, -1, len(planes) - 1,
+                            unbias_output)
     return outs[0], (outs[1] if vsrc is not None else None)

@@ -50,9 +50,15 @@ CHUNK_ROWS = 64        # arena gap after each child (kept: the arena layout
 BIAS = -0x80000000
 SENT = 0x7FFFFFFF
 MAX_PLANES = 4
-# the terminal kernel's shared-memory tile in tuples, by plane count
-# (``term_tile`` in csrc/kernels_v4.cu)
+# the terminal's global path: its shared-memory tile in tuples, by plane
+# count (``smem_tile`` in csrc/bitonic.cuh)
 TERM_TILE = {1: 16384, 2: 8192, 3: 8192, 4: 4096}
+# the terminal's cluster path (csrc/cluster_sort.cuh): log2 of the tuples
+# one CTA holds and the network's register window, by plane count, and
+# the largest cluster
+CS_CTA_LOG = {1: 15, 2: 14, 3: 14, 4: 13}
+CS_W = {1: 5, 2: 4, 3: 4, 4: 4}
+CS_MAX_CTAS = 16
 
 # launches of each kernel since the last reset (plain versions not
 # counted); the modes of the level kernels count apart: ".digit" (the LSB
@@ -311,6 +317,40 @@ def _scratch_offsets(btbl, src_len, cap_rows, class_id, tile):
     return (ends - size).contiguous(), int(ends[-1].item())
 
 
+def terminal_geometry(nplanes: int, cap_rows: int) -> Tuple[int, int]:
+    """(lr, sb): log2 of the tuples of the network a class of ``cap_rows``
+    rows sorts on (cap_rows * 128 rounded up to a power of two, at least
+    2^(W + 2)) and of those one CTA of the cluster path holds.  The one
+    place of this rule: the launch takes both."""
+    cap = max(cap_rows, 1) * LANES
+    lr = max((cap - 1).bit_length(), CS_W[nplanes] + 2)
+    return lr, min(lr, CS_CTA_LOG[nplanes])
+
+
+def terminal_path(nplanes: int, cap_rows: int) -> Tuple[str, int]:
+    """How ``terminal_write`` sorts a class of ``cap_rows`` rows: ("cluster",
+    CTAs per bucket) when the network over its capacity
+    (``terminal_geometry``) fits one thread-block cluster of at most
+    CS_MAX_CTAS CTAs, else ("global", 0), the one-block network over a
+    global scratch.  A host rule on the class's size, decided before the
+    launch."""
+    lr, sb = terminal_geometry(nplanes, cap_rows)
+    ctas = 1 << (lr - sb)
+    return ("cluster", ctas) if ctas <= CS_MAX_CTAS else ("global", 0)
+
+
+def terminal_resident(nplanes: int, cap_rows: int) -> int:
+    """The clusters the cluster path keeps resident (its persistent grid)
+    for a class of ``cap_rows`` rows on the current CUDA device, from the
+    occupancy calculator; for the per-call log."""
+    n = _build.library().kv4_terminal_resident(
+        nplanes, *terminal_geometry(nplanes, cap_rows))
+    if n < 0:
+        raise RuntimeError(f"terminal_resident: CUDA error {-n} "
+                           f"({_build.error_string(-n)})")
+    return n
+
+
 def terminal_write_ref(srcs, btbl, outs, cap_rows, class_id=None,
                        nlex=None, unbias_output=True):
     srcs, outs = tuple(srcs), tuple(outs)
@@ -491,25 +531,37 @@ def route_level(srcs: Sequence[torch.Tensor], meta: torch.Tensor,
     same kernel storing into the caller's arenas: since its stores are
     element-exact, rows outside its runs keep what earlier calls wrote.
 
-    Digit mode design (``route_digit_kernel``): one block of 512 threads
-    per tile walks the tile in input order, a chunk of 512 elements at a
-    time; an element's rank among the earlier lanes of its warp with its
-    digit is ``__popc(peers & lanes below)``, with ``peers`` from
-    ``__match_any_sync``; the warps' per-digit totals (16 x 2^bits
-    counters in shared memory) are scanned in warp order per digit from
-    a running cursor that carries across chunks, so the slot of every
-    element is the count of earlier elements of its tile with its digit.
-    At 8-bit digits that is 256 counters a warp and two block barriers
-    a chunk.
+    Digit mode design (``route_digit_kernel``, chunk-ranked as in
+    one-sweep radix sorts): one block of 512 threads per tile walks the
+    tile in input order, a chunk of 8,192 elements at a time for every
+    plane count (16 a thread; 89 KiB of shared memory at 8-bit digits, so
+    two blocks an SM; past rmax 1,117 a block would need more than the
+    H100's 227 KiB, and the launch fails with a RuntimeError, no
+    fallback: the engines pass at most 1,024).  Warp w owns a contiguous span of the chunk and
+    its lanes take it row by row, so loads are coalesced and a warp meets
+    its elements in input order.  A row is ranked by a shared-memory
+    ``atomicOr`` of each lane's bit into its warp's mask word of the
+    digit (the lanes sharing the digit; ``__match_any_sync`` is
+    microcoded and was the first version's bottleneck): an element's
+    rank is its warp's running count of the digit plus the mask's lanes
+    below it.  One pass over (digit, warp) and a warp-0 scan of the
+    digits give every element its slot in the chunk, in stable digit
+    order, and each run's cursor, which carries from chunk to chunk; the
+    chunk then goes plane by plane into shared memory in that order and
+    consecutive threads store consecutive elements of a digit's run, so
+    stores come as runs of sectors (at 8-bit digits a run averages 32
+    elements a chunk) instead of one 4-byte store per element.  3 + 2 x
+    planes block barriers a chunk, where the first version had two per
+    512 elements.
 
     All kernels are templated on the plane count, so a keys-only launch
     does no per-plane work; stores are element-exact (the TPU's 64-row
     chunk stores overshoot and rely on an in-order grid) and addresses
     are 64-bit, so an arena may pass 2^31 elements.  CUDA rather than
     Triton: each element's slot comes from a shared-memory atomic, or
-    from warp match intrinsics and an in-order scan across the warps of
-    a block, and the stores are a data-dependent scatter; Triton's block
-    model expresses none of these.
+    from per-warp shared-memory masks and an in-order scan across the
+    warps of a block, and the stores are a data-dependent scatter;
+    Triton's block model expresses none of these.
     """
     srcs = _check_planes("srcs", srcs, meta.device)
     tables = (("cnt", cnt), ("dst", dst), ("padv", padv))
@@ -566,26 +618,47 @@ def terminal_write(srcs: Sequence[torch.Tensor], btbl: torch.Tensor,
     Replaces ``kernels_v4.py:504-811`` (``_terminal_body`` with its in-kernel
     ``netsort.net_sort_multi``); its head/tail read-modify-write and
     rotate exist because TPU DMA writes whole rows and are not ported.
-    On the H100 a bucket does not fit a block's shared memory (the XL class
-    holds up to 2*cap_rows*128 = 2^19 keys at n >= 2^28), so the sort is
-    bound by the passes a bitonic network makes over global memory.
-    Design: one block per bucket, an all-ascending bitonic network over
-    the bucket virtually padded with all-SENT tuples to a power of two;
-    steps with a partner distance below the shared-memory tile
-    (``TERM_TILE``: 16K tuples for one plane, 8K for two or three, 4K
-    for four, at most 96 KiB) run in shared memory, longer ones on a
-    global scratch copy of the bucket (one per plane).  The scratch holds
-    only this launch's buckets that exceed the tile, packed; sizing it
-    costs one device sync per call.  A compare reads plane 0 and only
-    reads the next plane on a tie.  One launch per capacity class, as
-    ``_finish`` calls it, so that the class capacity clamps exactly as
-    on the reference.  Mode 1 never occurs with payload planes (the
-    planner drops no range then): the wrapper raises if it does, which
-    costs a device sync per multi-plane call.  CUDA rather than Triton:
-    one block owns a bucket of up to 2^19 tuples and orders its global
-    network steps with ``__syncthreads()`` between passes over shared
-    and global memory; Triton has no barrier across a block's passes
-    over global memory.
+    On the H100 a class bucket does not fit one block's shared memory
+    (class 1 holds cap_rows*128 = 2^17-2^18 tuples on the engines' large
+    inputs), so one block would sort it by passes over global memory.
+
+    Design: two paths, picked on the host from the class's size alone
+    (``terminal_path``), with no device sync to decide.  The cluster
+    path, every class whose network (cap_rows*128 tuples rounded up to a
+    power of two) fits a thread-block cluster of 1-16 CTAs: a persistent
+    launch of as many clusters as can be resident (``terminal_resident``)
+    walks the table, each cluster taking every G-th bucket of the class,
+    reads its bucket once into the cluster's shared memory, sorts it
+    there with the bitonic network ``ragged_sort`` uses
+    (``csrc/cluster_sort.cuh``: register windows, passes across CTAs in
+    distributed shared memory) and writes the real prefix once; no
+    scratch, no sync.  With 1-2 planes each bucket sorts on the smallest
+    power-of-two network that holds its min(occ_rows, cap_rows)*128
+    tuples, spread over all the cluster's CTAs, so one at most half the
+    class's capacity (v3's buckets) costs every CTA half a full bucket's
+    work; 3-4 planes keep the class's network (their class buckets fill
+    more than half of it, and the per-bucket one cost them 4%).  Keys and pairs sort their tuple words (an int32,
+    a uint64).  3-4 planes sort one uint64 a tuple as well, (key, top
+    bits of plane 1, index in the bucket), then order each run of equal
+    words by the remaining planes read from the arena (runs of up to 32
+    tuples, by one thread each; a bucket with a longer one is sorted
+    again as whole 96- or 128-bit tuples) and gather the other planes by
+    the index on the way out; a 96-bit compare would cost twice a pair's.
+    Every plane is compared, so the order is lexicographic over all
+    planes: for ``nlex < nplanes - 1`` the order of ties is not defined,
+    as it was not before.  The global path, a class that fits no cluster
+    (v5's 3-plane XL class, 6 MiB a bucket): one block per bucket, an
+    all-ascending bitonic network over the bucket virtually padded with
+    all-SENT tuples to a power of two; steps with a partner distance
+    below the shared tile (``TERM_TILE``) in shared memory, longer ones on
+    a global scratch copy of the bucket packed over this launch's large
+    buckets, whose size costs one device sync.  One launch per capacity
+    class, as ``_finish`` calls it, so that the class capacity clamps
+    exactly as on the reference.  Mode 1 never occurs with payload
+    planes (the planner drops no range then): the wrapper raises if it
+    does, which costs a device sync per multi-plane call.  CUDA rather
+    than Triton: thread-block clusters, distributed shared memory and
+    cluster barriers, which Triton does not expose.
     """
     dev = btbl.device
     srcs = _check_planes("srcs", srcs, dev)
@@ -606,16 +679,35 @@ def terminal_write(srcs: Sequence[torch.Tensor], btbl: torch.Tensor,
                                   nlex, unbias_output)
     nb = btbl.shape[0]
     if nb:
-        soff, nscratch = _scratch_offsets(btbl, srcs[0].numel(), cap_rows,
-                                          class_id, TERM_TILE[len(srcs)])
-        scratch = torch.empty((len(srcs), max(nscratch, 1)),
-                              dtype=torch.int32, device=dev)
-        _launch("terminal_write", "kv4_terminal_write", dev,
-                *_pp(srcs), srcs[0].numel(), _p(btbl), nb, *_pp(outs),
-                outs[0].numel(), _p(scratch), _p(soff), scratch.shape[1],
-                len(srcs), nlex, int(unbias_output), cap_rows,
-                -1 if class_id is None else int(class_id))
+        launch_terminal(_launch, "terminal_write", srcs, btbl, outs,
+                        cap_rows, -1 if class_id is None else int(class_id),
+                        nlex, unbias_output)
     return outs
+
+
+def launch_terminal(launch, kernel, srcs, btbl, outs, cap_rows, class_id,
+                    nlex, unbias_output):
+    """One terminal launch (``btbl`` (nb, 8) on the card, ``class_id`` -1
+    for every class) on the path ``terminal_path`` picks, through
+    ``launch`` (a module's ``_launch``, which counts it as ``kernel``).
+    The cluster path allocates nothing and does not synchronise; the
+    global path sizes its scratch on the host, one device sync."""
+    dev, nb = btbl.device, btbl.shape[0]
+    if terminal_path(len(srcs), cap_rows)[0] == "cluster":
+        launch(kernel, "kv4_terminal_cluster", dev,
+               *_pp(srcs), srcs[0].numel(), _p(btbl), nb, *_pp(outs),
+               outs[0].numel(), len(srcs), int(unbias_output), cap_rows,
+               class_id, *terminal_geometry(len(srcs), cap_rows))
+        return
+    soff, nscratch = _scratch_offsets(btbl, srcs[0].numel(), cap_rows,
+                                      None if class_id < 0 else class_id,
+                                      TERM_TILE[len(srcs)])
+    scratch = torch.empty((len(srcs), max(nscratch, 1)), dtype=torch.int32,
+                          device=dev)
+    launch(kernel, "kv4_terminal_write", dev,
+           *_pp(srcs), srcs[0].numel(), _p(btbl), nb, *_pp(outs),
+           outs[0].numel(), _p(scratch), _p(soff), scratch.shape[1],
+           len(srcs), nlex, int(unbias_output), cap_rows, class_id)
 
 
 def splice_runs(srcs: Sequence[torch.Tensor], btbl: torch.Tensor, out_n: int,

@@ -460,8 +460,9 @@ def ragged_sort(keys: torch.Tensor, vals: Optional[torch.Tensor],
     past its pad as SENT; a pair packed into one 64-bit word), sorts it
     in shared memory with a bitonic network whose steps run in
     registers, 32 keys or 16 pairs a thread at a time, and in
-    distributed shared memory for the distances across CTAs, and stores
-    it once: one launch a call.  A class above 8 x 128
+    distributed shared memory for the distances across CTAs (the network
+    of ``csrc/cluster_sort.cuh``, which v4's ``terminal_write`` shares),
+    and stores it once: one launch a call.  A class above 8 x 128
     KiB (``sort_vmem``'s one bucket of 2^20 keys) is sorted as cluster
     runs of that size and then merged: global steps for the distances of
     a run or more, the cluster kernel in merge mode for the shorter ones.

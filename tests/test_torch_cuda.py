@@ -244,51 +244,79 @@ def test_sort_with_indices_on_card(cuda):
     assert torch.equal(keys.view(torch.int32), x.view(torch.int32)[perm])
 
 
+def _terminal_caps(nplanes):
+    """A class capacity (rows) for every cluster size of the terminal's
+    cluster path, 1-16 CTAs, and the smallest one past it (the global
+    path)."""
+    caps = [1 << (kv4.CS_CTA_LOG[nplanes] - 7 + b) for b in range(6)]
+    assert [kv4.terminal_path(nplanes, c) for c in caps] == \
+        [("cluster", 1 << b) for b in range(5)] + [("global", 0)]
+    return caps
+
+
+def _terminal_check(cuda, srcs, btbl, outs, cap, class_id=None):
+    want = kv4.terminal_write_ref(srcs, btbl, tuple(o.clone() for o in outs),
+                                  cap, class_id)
+    got = kv4.terminal_write(tuple(s.to(cuda) for s in srcs), btbl.to(cuda),
+                             tuple(o.to(cuda) for o in outs), cap, class_id)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), \
+        (len(srcs), cap, kv4.terminal_path(len(srcs), cap))
+
+
 @pytest.mark.parametrize("nplanes", [2, 3, 4])
 def test_terminal_global_path_multiplane(cuda, nplanes):
     """A bucket of 3000 rows (above every shared tile) with plane-0 ties
-    broken by the lower planes."""
+    broken by the lower planes and SENT keys in its real prefix: at a
+    capacity of 4096 rows it takes the global path; then the same bucket
+    at the capacity of every cluster size (1-16 CTAs; the class capacity
+    clamps it), real not a multiple of 128."""
     rng = np.random.default_rng(nplanes)
     occ = 3000
     planes = [rng.integers(-2**31, 2**31, (occ + 8) * LANES)
               .astype(np.int32) for _ in range(nplanes)]
     planes[0] //= 1 << 20                     # many plane-0 ties
-    real = occ * LANES - 17
-    btbl = torch.tensor([[4, occ, real, 0, 0, 3, 0, 0]], dtype=torch.int32)
+    planes[0][4 * LANES + 50:4 * LANES + 90] = 0x7FFFFFFF   # SENT keys
     srcs = tuple(torch.from_numpy(p) for p in planes)
-    outs = tuple(torch.zeros(real + 8, dtype=torch.int32)
-                 for _ in planes)
-    want = kv4.terminal_write_ref(srcs, btbl, tuple(o.clone() for o in outs),
-                                  4096)
-    got = kv4.terminal_write(tuple(s.to(cuda) for s in srcs), btbl.to(cuda),
-                             tuple(o.to(cuda) for o in outs), 4096)
-    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert kv4.terminal_path(nplanes, 4096) == ("global", 0)
+    for cap in [4096] + _terminal_caps(nplanes):
+        real = min(occ, cap) * LANES - 17
+        btbl = torch.tensor([[4, occ, real, 0, 0, 3, 0, 0]],
+                            dtype=torch.int32)
+        outs = tuple(torch.zeros(real + 8, dtype=torch.int32)
+                     for _ in planes)
+        _terminal_check(cuda, srcs, btbl, outs, cap)
 
 
 @pytest.mark.parametrize("occ", [1, 127, 128, 129, 1500, 4096])
 def test_terminal_global_path(cuda, occ):
     """One bucket per size: up to 2^19 keys (the XL class at n >= 2^28),
-    including lengths that are not a power of two."""
+    including lengths that are not a power of two, with a value-fill
+    bucket beside it; at a capacity of 4096 rows (16 CTAs a bucket) and
+    at the capacity of every other cluster size and of the global path
+    (8192 rows)."""
     rng = np.random.default_rng(occ)
     arena = rng.integers(-2**31, 2**31, (occ + 8) * LANES).astype(np.int32)
     arena[4 * LANES:4 * LANES + 100] = 0x7FFFFFFF   # SENT keys
-    real = occ * LANES - 17
-    btbl = torch.tensor([[4, occ, real, 0, 0, 3, 0, 0],
-                         [0, 0, 5, 1, 12345, 3 + real, 0, 0]],
-                        dtype=torch.int32)
     src = torch.from_numpy(arena)
-    out0 = torch.zeros(real + 8 + 5, dtype=torch.int32)
-    (want,) = kv4.terminal_write_ref((src,), btbl, (out0.clone(),), 4096, 0)
-    (got,) = kv4.terminal_write((src.to(cuda),), btbl.to(cuda),
-                                (out0.to(cuda),), 4096, 0)
-    assert torch.equal(got.cpu(), want)
+    for cap in [4096] + _terminal_caps(1):
+        real = min(occ, cap) * LANES - 17
+        btbl = torch.tensor([[4, occ, real, 0, 0, 3, 0, 0],
+                             [0, 0, 5, 1, 12345, 3 + real, 0, 0]],
+                            dtype=torch.int32)
+        out0 = torch.zeros(real + 8 + 5, dtype=torch.int32)
+        _terminal_check(cuda, (src,), btbl, (out0,), cap, 0)
 
 
 @pytest.mark.parametrize("nplanes", [1, 3])
 def test_terminal_scratch_several_large_buckets(cuda, nplanes):
     """One launch with several buckets above the shared tile, one below
-    it and one of another class: each large bucket sorts in its own
-    packed scratch segment."""
+    it and one of another class: at the first capacity past the largest
+    cluster (the global path) each large bucket sorts in its own packed
+    scratch segment; the same table on the cluster path at 4096 (1
+    plane: 16 CTAs), 1024 and 256 rows (buckets of classes 0 and 1
+    interleaved, every class and class 1 alone); then every plane count
+    at its largest cluster with buckets of three classes interleaved,
+    one of them exactly half the class's network."""
     rng = np.random.default_rng(40 + nplanes)
     occs = np.array([300, 40, 1000, 129, 500])
     src_row = np.cumsum(occs) - occs
@@ -303,11 +331,32 @@ def test_terminal_scratch_several_large_buckets(cuda, nplanes):
         for _ in range(nplanes))
     outs = tuple(torch.zeros(int(real.sum()), dtype=torch.int32)
                  for _ in range(nplanes))
-    want = kv4.terminal_write_ref(srcs, btbl, tuple(o.clone() for o in outs),
-                                  4096, 0)
-    got = kv4.terminal_write(tuple(s.to(cuda) for s in srcs), btbl.to(cuda),
-                             tuple(o.to(cuda) for o in outs), 4096, 0)
-    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    gcap = _terminal_caps(nplanes)[5]
+    assert kv4.terminal_path(nplanes, gcap) == ("global", 0)
+    for cap in sorted({gcap, 4096}, reverse=True):
+        _terminal_check(cuda, srcs, btbl, outs, cap, 0)
+    for cap, cls in ((1024, 0), (1024, None), (256, 1)):
+        bt = btbl.clone()
+        bt[:, 2] = torch.minimum(bt[:, 2], bt[:, 1].clamp(max=cap) * LANES
+                                 - 3)
+        _terminal_check(cuda, srcs, bt, outs, cap, cls)
+    for np_ in (1, 2, 3, 4):
+        cap = _terminal_caps(np_)[4]
+        occs = np.array([cap, 7, cap // 2 + 1, 3, cap - 1, cap // 4, 2 * cap,
+                         cap // 2])
+        cls = np.array([1, 3, 1, 2, 1, 2, 0, 1])
+        src_row = np.cumsum(occs) - occs
+        real = np.minimum(occs, cap) * LANES - rng.integers(1, 127, len(occs))
+        off = np.cumsum(real) - real
+        z = np.zeros(len(occs), np.int64)
+        bt = torch.from_numpy(np.stack([src_row, occs, real, z, z, off, cls,
+                                        z], 1).astype(np.int32))
+        ss = tuple(torch.from_numpy(rng.integers(
+            -2**31, 2**31, int(occs.sum()) * LANES).astype(np.int32)
+            // (1 << 24)) for _ in range(np_))
+        oo = tuple(torch.zeros(int(real.sum()), dtype=torch.int32)
+                   for _ in range(np_))
+        _terminal_check(cuda, ss, bt, oo, cap, 1)
 
 
 def test_wrappers_raise_on_mixed_devices(cuda):
@@ -885,9 +934,12 @@ def _check_lsb_on_card(cuda):
     """api.sort(engine="lsb") on the card: every digit-mode hist_level,
     route_level (bit for bit on every run row) and splice_runs call
     equals its plain version, at the reference tests' geometry (4-bit
-    digits), at 6-bit digits (a last pass at shift 30, keys >= 2^31) and
-    at the default one; the results equal numpy's stable sort by key,
-    rids in input order among equal keys."""
+    digits; a tile of 2048 elements, one partial chunk of the route), at
+    6-bit digits (a last pass at shift 30, keys >= 2^31) and at the
+    default one (tiles of 12 chunks, the last tile's last chunk partial;
+    1-4 planes, the digit plane 1 on the u64 keys' low passes); the
+    results equal numpy's stable sort by key, rids in input order among
+    equal keys."""
     rng = np.random.default_rng(41)
     n = (1 << 21) + 77
     perm = rng.permutation(n).astype(np.uint32)
@@ -899,6 +951,7 @@ def _check_lsb_on_card(cuda):
              ({}, few, perm),
              ({}, rng.integers(0, 2**64, n, dtype=np.uint64),
               rng.integers(0, 2**64, n, dtype=np.uint64)),
+             ({}, rng.integers(0, 2**64, n, dtype=np.uint64), perm),
              ({}, rng.standard_normal(n).astype(np.float32), None),
              ({}, rng.integers(-2**31, 2**31, n).astype(np.int32), perm)]
     for geom, x, rid in cases:

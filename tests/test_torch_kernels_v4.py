@@ -350,7 +350,9 @@ def test_terminal_scratch_packs_large_buckets(cap_rows):
     """The terminal's global scratch holds, packed in table order, only
     the sorted buckets of the launch's class that the shared tile cannot
     (16K tuples = 128 rows, one plane), each as long as the class
-    capacity lets it be; value-fill buckets and other classes take none."""
+    capacity lets it be; value-fill buckets and other classes take none.
+    Which classes take that path at all (``terminal_path``), and the
+    cluster path's network (``terminal_geometry``)."""
     btbl, src_len = _scratch_table([300, 40, 1000, 129, 500, 900],
                                    [0, 0, 0, 0, 1, 0], [0, 0, 0, 0, 0, 1])
     soff, total = tk._scratch_offsets(btbl, src_len, cap_rows, 0,
@@ -359,6 +361,21 @@ def test_terminal_scratch_packs_large_buckets(cap_rows):
     assert total == sum(m)
     assert soff.dtype == torch.int64
     assert soff[[0, 2, 3]].tolist() == [0, m[0], m[0] + m[1]]
+    # only a class that fits no cluster of 16 CTAs takes the global path
+    # with its scratch: of the engines' classes, v5's 3-plane XL class
+    # (cap_rows 4096); the rest sort on 1-16 CTAs
+    for (nplanes, cap), want in {
+            (1, 256): ("cluster", 1), (1, 2048): ("cluster", 8),
+            (1, 4096): ("cluster", 16), (1, 8192): ("global", 0),
+            (2, 1024): ("cluster", 8), (3, 1024): ("cluster", 8),
+            (3, 2048): ("cluster", 16), (3, 4096): ("global", 0),
+            (4, 512): ("cluster", 8), (4, 1024): ("cluster", 16),
+            (4, 2048): ("global", 0), (3, 1): ("cluster", 1)}.items():
+        assert tk.terminal_path(nplanes, cap) == want, (nplanes, cap)
+    # the network the launch is given: (log2 of its tuples, of a CTA's)
+    assert [tk.terminal_geometry(p, c) for p, c in
+            ((1, 2048), (2, 1024), (3, 1), (4, 2048))] == \
+        [(18, 15), (17, 14), (7, 7), (18, 13)]
 
 
 def _splice_case(seed, nplanes):
