@@ -95,14 +95,21 @@ call, into rows of class_rows*128 or cap_rows*128 with SENT after each
 bucket's pad, two planes packed into order-preserving int64 words
 (key << 32) | (val + 2^31), then sorted by row; summed by plane count
 at the end);
-``torch.bincount`` of tile * 2^bits + digit for ``hist_level.digit``; a
-stable ``torch.sort`` of (tile, digit) keys for ``route_level.digit``
+``torch.bincount`` of tile * rmax + bin for ``hist_level`` and
+``hist_level.digit``; a stable ``torch.sort`` of (tile, bin) keys for
+``route_level``, ``route_level.accumulate`` and ``route_level.digit``
 (the order of the partition; the planes gathered by it must equal the
-runs' real prefixes).  Where the library call
+runs' real prefixes, bit for bit in the digit mode and up to the order
+inside each run in the others); the bin is the digit or, in range mode,
+the range from ``torch.searchsorted`` on the parent's bounds, built
+outside the timed call, on the level launches of at most
+``LIBRARY_MAX`` live elements whose index tables fit the card's free
+memory beside the sort.  Where the library call
 covers only some launches, the JSON record gives their count
 (``library_calls``) and the kernel's time on them
-(``library_kernel_ms``) beside ``library_ms``.  ``compact``,
-``block_permute``, ``route_level.digit``, ``terminal_write`` and
+(``library_kernel_ms``) beside ``library_ms``.  ``hist_level``,
+``hist_level.digit``, ``route_level`` (every mode), ``compact``,
+``block_permute``, ``terminal_write`` and
 ``terminal_sort_write`` also report their launch alone (CUDA events
 around the C launcher, without the wrapper's host work, uploads and
 syncs) as ``launch_ms``, per call in the log and summed in the JSON
@@ -143,6 +150,8 @@ I64_MIN = -0x8000000000000000
 SEED = 20240
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM at 700 W (NVIDIA data sheet)
 CHECK_CHUNK = 1 << 25              # elements per plain-version replay
+# the largest level launch (live elements) that gets a library time
+LIBRARY_MAX = 1 << 28
 CALL_LOG = os.path.join("chiprun_out", "chip_smoke_calls.log")
 # (log2 n, key kind, rid kind): one small sort per plane count, and a
 # deep-tier input, run before the main paths so that no checked launch
@@ -245,8 +254,9 @@ KERNELS = {
 }
 # kernels whose launch alone (CUDA events around the C launcher, the
 # wrapper's host work and uploads outside) is timed beside the wrapper
-LAUNCH_TIMED = ("compact", "block_permute", "route_level.digit",
-                "terminal_write", "terminal_sort_write")
+LAUNCH_TIMED = ("hist_level", "hist_level.digit", "route_level",
+                "route_level.digit", "route_level.accumulate", "compact",
+                "block_permute", "terminal_write", "terminal_sort_write")
 LANES = 128
 BLK = 256 * LANES                  # v5's exchange block, in elements
 # the wrapper functions behind the KERNELS entries
@@ -665,55 +675,95 @@ def library_splice(m, a, out, _):
     return ms
 
 
-def library_hist_digit(m, a, out, _):
-    """Digit mode: ``torch.bincount`` of tile * 2^bits + digit over the
-    live elements (the index built first, not timed), required equal to
-    the kernel's counts.  Range mode: None (no one call classifies by
-    bounds and counts per tile)."""
-    if a["digit_shift"] is None:
-        return None
+def _level_bins(m, a, src):
+    """(tile index, flat source index, bin) of every live element of a
+    level launch whose bin is below rmax: the digit, or the range from
+    ``torch.searchsorted`` on its parent's bounds (``bias_input`` applied
+    first)."""
     nt, rmax = a["ntiles"], a["rmax"]
-    parent, idx, live = m.kv4._tile_index(a["src"], a["meta"], nt,
-                                          a["pitch"])
-    dig = m.kv4._digits(a["src"].reshape(-1)[idx], a["digit_shift"],
-                        a["digit_bits"])
-    live &= dig < rmax
-    t = torch.arange(nt, device=dig.device)[:, None]
-    key = (t * rmax + dig)[live]
-    del parent, idx, live, dig
+    parent, idx, live = m.kv4._tile_index(src, a["meta"], nt, a["pitch"])
+    k = src.reshape(-1)[idx]
+    if a["digit_shift"] is None:
+        b = m.kv4._classify(a["bounds"], parent,
+                            k ^ BIAS if a["bias_input"] else k, rmax)
+    else:
+        b = m.kv4._digits(k, a["digit_shift"], a["digit_bits"])
+    del parent, k
+    live &= b < rmax
+    t = torch.arange(nt, device=b.device)[:, None].expand_as(b)
+    return t[live], idx[live], b[live]
+
+
+def _library_room(a, per_elem):
+    """Whether a level launch gets a library time: at most
+    ``LIBRARY_MAX`` live elements, and ``per_elem`` bytes for each of
+    them free on the card (with 4 GiB to spare) beside the sort and its
+    check."""
+    live = _live(a["meta"], a["ntiles"], a["pitch"])
+    free = (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+            - torch.cuda.memory_allocated())
+    return live <= LIBRARY_MAX and live * per_elem + (4 << 30) <= free
+
+
+def library_hist(m, a, out, _):
+    """``torch.bincount`` of tile * rmax + bin over the live elements
+    (the bins built first, not timed: ``_level_bins``), required equal to
+    the kernel's counts; None where ``_library_room`` says no."""
+    nt, rmax = a["ntiles"], a["rmax"]
+    if not _library_room(a, 48):
+        return None
+    t, _, b = _level_bins(m, a, a["src"])
+    key = t * rmax + b
+    del t, b
     lib, ms = _plain(torch.bincount, key, None, nt * rmax)
     assert torch.equal(lib.view(nt, rmax).to(torch.int32), out), \
         "hist bincount differs"
     return ms
 
 
-def library_route_digit(m, a, out, _):
-    """Stable digit mode: ``torch.sort(tile * 2^bits + digit,
-    stable=True)`` over the live elements (the keys built first, not
-    timed): the order of the stable partition; the planes gathered by its
-    indices (not timed) must equal the runs' real prefixes in (tile,
-    digit) order.  No one call also pads and places the runs.  Range and
-    accumulate modes: None (no one call classifies by bounds)."""
-    if a["digit_shift"] is None:
-        return None
+def library_route(m, a, out, _):
+    """``torch.sort(tile * rmax + bin, stable=True)`` over the live
+    elements whose run is stored (the keys built first, not timed:
+    ``_level_bins``): the order of a stable partition by run.  The planes
+    gathered by its indices (not timed) must equal the runs' real
+    prefixes, bit for bit in the stable digit mode, and in range and
+    accumulate modes once both are sorted by run and tuple, as
+    ``canonical_runs`` compares.  No one call also pads and places the
+    runs.  None where ``_library_room`` says no."""
     nt, rmax = a["ntiles"], a["rmax"]
-    _, idx, live = m.kv4._tile_index(a["srcs"][0], a["meta"], nt,
-                                     a["pitch"])
-    dig = m.kv4._digits(a["srcs"][a["digit_plane"]].reshape(-1)[idx],
-                        a["digit_shift"], a["digit_bits"])
-    t = torch.arange(nt, device=dig.device)[:, None]
-    key = (t * rmax + dig)[live].to(torch.int32)
-    flat = idx[live]
-    del idx, live, dig
+    if not _library_room(a, 64 + 16 * len(a["srcs"])):
+        return None
+    digit = a["digit_shift"] is not None
+    t, flat, b = _level_bins(m, a, a["srcs"][a["digit_plane"] if digit
+                                             else 0])
+    key = t * rmax + b
+    del t, b
+    dst = a["dst"].reshape(-1).long()
+    stored = dst[key] >= 0
+    key, flat = key[stored].to(torch.int32), flat[stored]
     lib, ms = _plain(lambda k: torch.sort(k, stable=True), key)
     del key
     src = flat[lib.indices]
     del lib, flat
-    pos = m.kv4._spans(a["dst"].reshape(-1).long() * LANES,
-                       a["cnt"].reshape(-1).long())
-    for o, p in zip(out, a["srcs"]):
-        assert torch.equal(p.reshape(-1)[src], o.reshape(-1)[pos]), \
-            "route stable sort differs"
+    sel = dst >= 0
+    cnt = a["cnt"].reshape(-1).long()[sel]
+    pos = m.kv4._spans(dst[sel] * LANES, cnt)
+    xor = BIAS if a["bias_input"] else 0
+    want = [p.reshape(-1)[src] ^ xor for p in a["srcs"]]
+    del src
+    got = [o.reshape(-1)[pos] for o in out]
+    del pos
+    if not digit:
+        run = torch.repeat_interleave(
+            torch.arange(cnt.numel(), device=cnt.device), cnt)
+
+        def canonical(x):
+            perm = m.kv4._lex_order([run] + x)
+            return [v[perm] for v in x]
+        want, got = canonical(want), canonical(got)
+        del run
+    for w, g in zip(want, got):
+        assert torch.equal(w, g), "route stable sort differs"
     return ms
 
 
@@ -1084,8 +1134,9 @@ CHECKS = {"hist_level": check_hist, "route_level": check_route,
           "ragged_sort": check_ragged, "compact": check_compact}
 # kernels with a one-call PyTorch equivalent (on some or all launches:
 # None where a launch has none)
-LIBRARY = {"hist_level.digit": library_hist_digit,
-           "route_level.digit": library_route_digit,
+LIBRARY = {"hist_level": library_hist, "hist_level.digit": library_hist,
+           "route_level": library_route, "route_level.digit": library_route,
+           "route_level.accumulate": library_route,
            "terminal_write": library_terminal,
            "splice_runs": library_splice, "block_permute": library_permute,
            "terminal_sort_write": library_terminal_v3,

@@ -4,9 +4,11 @@
 // classes no cluster holds) and the run splice of the deep tier
 // (splice_runs).
 //
-// The LSB engine's passes run the digit modes of the level kernels
-// (hist_digit_kernel, route_digit_kernel): counts by a radix digit of the
-// raw word, and a partition that is stable by that digit.
+// The level kernels have a range mode, which classifies by the parent's
+// bounds (hist_kernel<true>, route_range_kernel), and the digit mode of
+// the LSB engine's passes (hist_kernel<false>, route_digit_kernel):
+// counts by a radix digit of the raw word, and a partition that is
+// stable by that digit.
 //
 // Built by ops/_build.py, with the other sources of csrc/: one
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -32,13 +34,15 @@
 
 namespace {
 
-constexpr int LEVEL_THREADS = 512;   // hist_level / route_level block
+constexpr int HIST_THREADS = 512;    // hist_level block
+constexpr int HIST_U = 4;            // 16-byte vectors a thread per step
 constexpr int TERM_THREADS = 1024;   // terminal_write block
 constexpr int SPLICE_THREADS = 256;  // splice_runs block
-constexpr int DIGIT_THREADS = 512;   // route_digit_kernel block
-constexpr int DIGIT_WARPS = DIGIT_THREADS / 32;
-constexpr int DIGIT_E = 16;          // elements a thread holds of a chunk
-constexpr int DIGIT_CHUNK = DIGIT_THREADS * DIGIT_E;  // 8192, any NP
+constexpr int ROUTE_THREADS = 512;   // route_level block, both kernels
+constexpr int ROUTE_WARPS = ROUTE_THREADS / 32;
+constexpr int ROUTE_E = 16;          // elements a thread holds of a chunk
+constexpr int ROUTE_CHUNK = ROUTE_THREADS * ROUTE_E;  // 8192, any NP
+constexpr size_t SMEM_MAX = 227 * 1024;  // shared memory a block may take
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // The radix digit (raw >> shift) & mask of a raw uint32 word held in an
@@ -49,15 +53,70 @@ __device__ __forceinline__ unsigned digit_of(int32_t raw, int shift,
 }
 
 // First d in [0, rmax) with k <= b[d] for non-decreasing inclusive upper
-// bounds b; rmax when k exceeds every bound.
+// bounds b, rmax when k exceeds every bound: the count of bounds below k,
+// by a branch-free binary search of floor(log2 rmax) + 1 steps (top is
+// the highest power of two <= rmax).
 __device__ __forceinline__ int find_range(const int32_t* b, int rmax,
-                                          int32_t k) {
-  int lo = 0, hi = rmax;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (k <= b[mid]) hi = mid; else lo = mid + 1;
+                                          int top, int32_t k) {
+  int pos = 0;
+  for (int s = top; s > 0; s >>= 1)
+    if (pos + s <= rmax && b[pos + s - 1] < k) pos += s;
+  return pos;
+}
+
+// The range lookup of the level kernels' range mode.  The parent's
+// bounds span [lo, hi] = [b[0], b[rmax - 1]], cut into LUT_CELLS cells of
+// 2^sh keys (the least sh that covers the span); lut[c] is the count of
+// bounds below the first key of cell c, so a key k in (lo, hi] lies in
+// cell (k - lo) >> sh and its range in [lut[c], lut[c + 1]]: one or two
+// shared loads where the bounds are spread, a search over the few bounds
+// of the cell where they crowd.  Keys at or below lo are in range 0,
+// keys above hi in none (rmax).  The cells follow the parent's bounds, so
+// a level whose parent covers a narrow key range (an L2 tile, a chunked
+// sort's window) is served as well as L1.
+constexpr int LUT_BITS = 12;
+constexpr int LUT_CELLS = 1 << LUT_BITS;
+
+struct RangeLut {
+  const uint16_t* lut;
+  const int32_t* b;
+  int rmax, sh;
+  int32_t lo, hi;
+};
+
+__device__ __forceinline__ int lut_shift(const int32_t* b, int rmax) {
+  const long long span = (long long)b[rmax - 1] - b[0];
+  return max(0, 64 - __clzll(span) - LUT_BITS);
+}
+
+__device__ void build_lut(uint16_t* lut, const int32_t* b, int rmax) {
+  const int top = 1 << (31 - __clz(rmax)), sh = lut_shift(b, rmax);
+  for (int c = threadIdx.x; c <= LUT_CELLS; c += blockDim.x) {
+    const long long k = (long long)b[0] + ((long long)c << sh);
+    lut[c] = k > 0x7fffffffLL ? rmax : find_range(b, rmax, top, (int32_t)k);
   }
-  return lo;
+}
+
+__device__ __forceinline__ RangeLut range_lut(const uint16_t* lut,
+                                              const int32_t* b, int rmax) {
+  return RangeLut{lut, b, rmax, lut_shift(b, rmax), b[0], b[rmax - 1]};
+}
+
+__device__ __forceinline__ int range_of(const RangeLut& r, int32_t k) {
+  if (k <= r.lo) return 0;
+  if (k > r.hi) return r.rmax;
+  const int c = (int)((uint32_t)((long long)k - r.lo) >> r.sh);
+  int pos = r.lut[c], n = r.lut[c + 1] - pos;
+  while (n > 0) {
+    const int h = n >> 1;
+    if (r.b[pos + h] < k) {
+      pos += h + 1;
+      n -= h + 1;
+    } else {
+      n = h;
+    }
+  }
+  return pos;
 }
 
 // Tile t of a level: (parent, first element, live element count), with
@@ -82,121 +141,266 @@ __device__ __forceinline__ TileMeta tile_meta(const int32_t* meta, int t,
 }
 
 // ------------------------------------------------------------ hist_level
-// One block per tile: classify each live element by binary search over
-// the parent's bounds, count in shared memory, write the tile's row.
-// Slack lanes are skipped by index, never by value: SENT equals a real
-// biased 0xFFFFFFFF.
-__global__ void __launch_bounds__(LEVEL_THREADS) hist_level_kernel(
+// One block per tile, both modes: each live element's bin (range mode:
+// its range through the lookup table and the parent's bounds in shared
+// memory, range_of; digit mode: the digit of its raw word, shifted
+// logically; bounds not read) is counted in shared memory.  The tile is
+// read with 16-byte loads, HIST_U a thread per step, when its start is
+// 16-byte aligned (a tile starts at src_row * 128 elements, but a plane
+// may be a view), else element by element; lanes past nel are skipped by
+// index, never by value (SENT equals a real biased 0xFFFFFFFF), and bins
+// >= rmax count nowhere.  Warp w counts into sub-histogram w % copies
+// (the host picks copies from rmax: kernels_v4.hist_layout), so warps do
+// not contend for a counter under a heavy key; the copies are summed
+// into the tile's row at the end.  Shared memory: the copies, the bounds
+// and, range mode, the lookup table.
+template <bool RANGE>
+__global__ void __launch_bounds__(HIST_THREADS) hist_kernel(
     const int32_t* __restrict__ src, long long src_len,
     const int32_t* __restrict__ meta, const int32_t* __restrict__ bounds,
-    int32_t* __restrict__ hist, int pitch, int rmax, int32_t xor_in) {
+    int32_t* __restrict__ hist, int pitch, int rmax, int32_t xor_in,
+    int shift, unsigned mask, int copies, int split) {
   extern __shared__ int32_t smem[];
-  int32_t* sb = smem;            // rmax bounds
-  int* cnt = smem + rmax;        // rmax counters
-  const int t = blockIdx.x;
+  int* cnt = smem;                          // copies x rmax counters
+  int32_t* sb = cnt + copies * rmax;        // rmax bounds (range mode)
+  uint16_t* lut = (uint16_t*)(sb + rmax);   // LUT_CELLS + 1 (range mode)
+  const int t = blockIdx.x / split, sub = blockIdx.x % split;
   const TileMeta m = tile_meta(meta, t, pitch, src_len);
-  for (int d = threadIdx.x; d < rmax; d += blockDim.x) {
-    sb[d] = bounds[(long long)m.parent * rmax + d];
-    cnt[d] = 0;
+  for (int q = threadIdx.x; q < copies * rmax; q += blockDim.x) cnt[q] = 0;
+  if (RANGE) {
+    for (int d = threadIdx.x; d < rmax; d += blockDim.x)
+      sb[d] = bounds[(long long)m.parent * rmax + d];
+    __syncthreads();
+    build_lut(lut, sb, rmax);
   }
   __syncthreads();
-  for (long long i = threadIdx.x; i < m.nel; i += blockDim.x) {
-    int d = find_range(sb, rmax, src[m.base + i] ^ xor_in);
-    if (d < rmax) atomicAdd(&cnt[d], 1);
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < rmax; d += blockDim.x)
-    hist[(long long)t * rmax + d] = cnt[d];
-}
-
-
-// One block per tile, digit mode: count each live element by the digit
-// of its raw word; digits >= rmax and slack lanes count nowhere.  The
-// lanes of a warp that share a digit add their count once
-// (__match_any_sync), which keeps the shared atomics off the critical
-// path when few digits occur.
-__global__ void __launch_bounds__(LEVEL_THREADS) hist_digit_kernel(
-    const int32_t* __restrict__ src, long long src_len,
-    const int32_t* __restrict__ meta, int32_t* __restrict__ hist, int pitch,
-    int rmax, int shift, unsigned mask) {
-  extern __shared__ int32_t smem[];
-  int* cnt = smem;               // rmax counters
-  const int t = blockIdx.x;
-  const TileMeta m = tile_meta(meta, t, pitch, src_len);
-  for (int d = threadIdx.x; d < rmax; d += blockDim.x) cnt[d] = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  for (long long i0 = 0; i0 < m.nel; i0 += blockDim.x) {
-    const long long i = i0 + threadIdx.x;
-    const int d = i < m.nel ? (int)digit_of(src[m.base + i], shift, mask)
-                            : -1;
-    const unsigned peers = __match_any_sync(FULL_MASK, d);
-    if (d >= 0 && d < rmax && lane == __ffs(peers) - 1)
-      atomicAdd(&cnt[d], __popc(peers));
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < rmax; d += blockDim.x)
-    hist[(long long)t * rmax + d] = cnt[d];
-}
-
-// ----------------------------------------------------------- route_level
-// One block per tile: each live element claims the next slot of its
-// range's run (plane 0 classifies) with a shared-memory atomic and is
-// stored at dst[t, d] * 128 + slot in every plane (64-bit addresses).
-// The run's tail gets (-cnt) % 128 pad tuples (padv[t, d], SENT, ...), so
-// the run fills exactly ceil(cnt / 128) rows.  Every store is
-// element-exact: blocks run in no order, so nothing may be written
-// outside the block's own runs.  dst < 0 marks a dropped (value-filled)
-// range: nothing is stored.
-template <int NP>
-__global__ void __launch_bounds__(LEVEL_THREADS) route_level_kernel(
-    Planes<NP> src, long long src_len,
-    const int32_t* __restrict__ meta, const int32_t* __restrict__ bounds,
-    const int32_t* __restrict__ cnt, const int32_t* __restrict__ dst,
-    const int32_t* __restrict__ padv, Planes<NP> out, long long out_len,
-    int pitch, int rmax, int32_t xor_in) {
-  extern __shared__ long long smem64[];
-  long long* sdst = smem64;                          // rmax run bases
-  int32_t* sb = (int32_t*)(smem64 + rmax);           // rmax bounds
-  int* scnt = sb + rmax;                             // rmax run counts
-  int* cur = scnt + rmax;                            // rmax cursors
-  const int t = blockIdx.x;
-  const TileMeta m = tile_meta(meta, t, pitch, src_len);
-  const long long row0 = (long long)t * rmax;
-  for (int d = threadIdx.x; d < rmax; d += blockDim.x) {
-    sb[d] = bounds[(long long)m.parent * rmax + d];
-    scnt[d] = cnt[row0 + d];
-    const int dr = dst[row0 + d];
-    sdst[d] = dr >= 0 ? (long long)dr * LANES : -1;
-    cur[d] = 0;
-  }
-  __syncthreads();
-  for (long long i = threadIdx.x; i < m.nel; i += blockDim.x) {
-    const int32_t k = src.p[0][m.base + i] ^ xor_in;
-    const int d = find_range(sb, rmax, k);
-    if (d < rmax && sdst[d] >= 0) {
-      const int slot = atomicAdd(&cur[d], 1);
-      const long long o = sdst[d] + slot;
-      if (slot < scnt[d] && o < out_len) {
-        out.p[0][o] = k;
+  const RangeLut rl = RANGE ? range_lut(lut, sb, rmax) : RangeLut{};
+  int* my = cnt + ((threadIdx.x >> 5) & (copies - 1)) * rmax;
+  const int32_t* s = src + m.base;
+  const bool vec = ((uintptr_t)s & 15) == 0;
+  constexpr int STEP = HIST_THREADS * 4 * HIST_U;
+  for (long long i0 = (long long)sub * STEP; i0 < m.nel;
+       i0 += (long long)split * STEP) {
+    int32_t x[HIST_U][4];
 #pragma unroll
-        for (int q = 1; q < NP; ++q)
-          out.p[q][o] = src.p[q][m.base + i] ^ xor_in;
+    for (int u = 0; u < HIST_U; ++u) {
+      const long long i = i0 + 4LL * (u * HIST_THREADS + threadIdx.x);
+      if (vec && i + 4 <= m.nel) {
+        const int4 v = *(const int4*)(s + i);
+        x[u][0] = v.x; x[u][1] = v.y; x[u][2] = v.z; x[u][3] = v.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) x[u][c] = i + c < m.nel ? s[i + c] : 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < HIST_U; ++u) {
+      const long long i = i0 + 4LL * (u * HIST_THREADS + threadIdx.x);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int d = RANGE ? range_of(rl, x[u][c] ^ xor_in)
+                            : (int)digit_of(x[u][c], shift, mask);
+        if (i + c < m.nel && d < rmax) atomicAdd(&my[d], 1);
       }
     }
   }
-  // pads occupy [cnt, cnt + npad) of each run: disjoint from the element
-  // slots above, so no barrier is needed between the two loops
-  for (int q = threadIdx.x; q < rmax * LANES; q += blockDim.x) {
+  __syncthreads();
+  for (int d = threadIdx.x; d < rmax; d += blockDim.x) {
+    int sum = 0;
+    for (int c = 0; c < copies; ++c) sum += cnt[c * rmax + d];
+    if (split == 1)
+      hist[(long long)t * rmax + d] = sum;
+    else if (sum)                           // into the zeroed row
+      atomicAdd(&hist[(long long)t * rmax + d], sum);
+  }
+}
+
+// ----------------------------------------------------------- route_level
+// One block per tile in range mode: a partition of the tile's elements
+// into the runs of their ranges (plane 0 classifies), chunk-ranked as the
+// digit mode below is.  The block walks its tile, one chunk of
+// ROUTE_CHUNK elements at a time.  Warp w owns the contiguous span [w *
+// 32 * ROUTE_E, (w + 1) * 32 * ROUTE_E) of the chunk and its lanes take it
+// row by row, so the loads are coalesced.  Each key's range comes from
+// range_of (the lookup table and the parent's bounds in shared memory).
+// Ranking: every element takes the next count of its range in its
+// warp's count table with one shared atomicAdd; a warp row whose lanes
+// all share a range (a heavy key) takes 32 at once through lane 0, so a
+// heavy range does not serialise a warp's atomics.  Then one pass over
+// (range, warp) turns the warps' counts into offsets inside each range's
+// segment of the chunk, and warp 0 scans the segments' starts (dstart)
+// and where each segment goes in its run: the run's cursor, which
+// carries from chunk to chunk, or, when a tile has several blocks
+// (split > 1: they take its chunks in turn), a global atomicAdd on the
+// run's cursor in gcur.  The chunk then goes, plane by plane, into shared
+// memory in that order, and consecutive threads store consecutive
+// elements of a segment at dst[t, d] * 128 + its place: runs of whole
+// sectors instead of one 4-byte store per element.  The order inside a
+// run is not defined (the contract leaves it free).  Every run holds its
+// cnt[t, d] tuples, then (-cnt) % 128 pad tuples (padv[t, d] in plane 0,
+// SENT in the others), which the tile's first block writes.
+//
+// `rows` is the number of count tables: one a warp, or one that the
+// warps share where rmax is too wide for those.  The host picks rows,
+// split and the shared memory, laid out as below, from the launch's shape
+// (kernels_v4.route_layout and level_split).  Slack lanes, keys above
+// every bound (d == rmax) and runs with dst < 0 (value-filled ranges) are
+// skipped by index, never by value (SENT is a real key).  xor_in
+// (bias_input) applies to every plane on load.  Stores are element-exact
+// with 64-bit addresses, so an accumulate launch writes only its own
+// runs' rows.
+template <int NP>
+__global__ void __launch_bounds__(ROUTE_THREADS, 2) route_range_kernel(
+    Planes<NP> src, long long src_len, const int32_t* __restrict__ meta,
+    const int32_t* __restrict__ bounds, const int32_t* __restrict__ cnt,
+    const int32_t* __restrict__ dst, const int32_t* __restrict__ padv,
+    Planes<NP> out, long long out_len, int pitch, int rmax, int32_t xor_in,
+    int rows, int split, int* __restrict__ gcur) {
+  extern __shared__ long long smem64[];
+  long long* sdst = smem64;                  // rmax run bases (-1: no store)
+  long long* oend = sdst + rmax;             // rmax ends of the real tuples
+  long long* obase = oend + rmax;            // rmax: out index - staged slot
+  int* scnt = (int*)(obase + rmax);          // rmax run counts
+  int* cur = scnt + rmax;                    // rmax cursors
+  int* dstart = cur + rmax;                  // rmax segment starts
+  int32_t* sb = dstart + rmax;               // rmax bounds
+  int* wcnt = sb + rmax;                     // [rows][range] counts, offsets
+  int32_t* stage = wcnt + rows * rmax;       // ROUTE_CHUNK
+  uint16_t* sdig = (uint16_t*)(stage + ROUTE_CHUNK);  // their ranges
+  int* nstaged = (int*)(sdig + ROUTE_CHUNK);
+  uint16_t* lut = (uint16_t*)(nstaged + 1);  // LUT_CELLS + 1
+  const int t = blockIdx.x / split, sub = blockIdx.x % split;
+  const TileMeta m = tile_meta(meta, t, pitch, src_len);
+  const long long row0 = (long long)t * rmax;
+  for (int d = threadIdx.x; d < rmax; d += blockDim.x) {
+    const int c = cnt[row0 + d];
+    const int dr = dst[row0 + d];
+    scnt[d] = c;
+    sdst[d] = dr >= 0 ? (long long)dr * LANES : -1;
+    oend[d] = dr >= 0 ? (long long)dr * LANES + c : -1;
+    cur[d] = 0;
+    sb[d] = bounds[(long long)m.parent * rmax + d];
+  }
+  for (int q = threadIdx.x; q < rows * rmax; q += blockDim.x) wcnt[q] = 0;
+  __syncthreads();
+  build_lut(lut, sb, rmax);
+  __syncthreads();
+  const RangeLut rl = range_lut(lut, sb, rmax);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int* wc = wcnt + (rows > 1 ? w : 0) * rmax;
+  for (long long c0 = (long long)sub * ROUTE_CHUNK; c0 < m.nel;
+       c0 += (long long)split * ROUTE_CHUNK) {
+    const long long span = c0 + (long long)w * 32 * ROUTE_E + lane;
+    // per element one register: its key, then (range + 1) << 16 | its
+    // slot (the rank in the warp, then the slot in the stage), 0 where
+    // nothing is stored
+    int ds[ROUTE_E];
+#pragma unroll
+    for (int j = 0; j < ROUTE_E; ++j) {
+      const long long i = span + 32 * j;
+      ds[j] = i < m.nel ? src.p[0][m.base + i] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < ROUTE_E; ++j) {
+      const int g = range_of(rl, ds[j] ^ xor_in);
+      ds[j] = span + 32 * j < m.nel && g < rmax && sdst[g] >= 0 ? g : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < ROUTE_E; ++j) {
+      const int d = ds[j];
+      const int d0 = __shfl_sync(FULL_MASK, d, 0);
+      int rank;
+      if (__all_sync(FULL_MASK, d == d0)) {
+        int b = 0;
+        if (lane == 0 && d0 >= 0) b = atomicAdd(&wc[d0], 32);
+        rank = __shfl_sync(FULL_MASK, b, 0) + lane;
+      } else {
+        rank = d >= 0 ? atomicAdd(&wc[d], 1) : 0;
+      }
+      ds[j] = d >= 0 ? ((d + 1) << 16) | rank : 0;
+    }
+    __syncthreads();
+    // each range's count over the tables, in warp order: offsets of the
+    // warps inside the range's segment, and the segment's length
+    for (int g = threadIdx.x; g < rmax; g += blockDim.x) {
+      int run = 0;
+      for (int ww = 0; ww < rows; ++ww) {
+        const int c = wcnt[ww * rmax + g];
+        wcnt[ww * rmax + g] = run;
+        run += c;
+      }
+      dstart[g] = run;
+    }
+    __syncthreads();
+    if (w == 0) {
+      // the segments' starts: an exclusive scan of the lengths, each lane
+      // over a contiguous share of the ranges
+      const int per = (rmax + 31) / 32, g0 = min(lane * per, rmax),
+                g1 = min(g0 + per, rmax);
+      int sum = 0;
+      for (int g = g0; g < g1; ++g) sum += dstart[g];
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL_MASK, incl, o);
+        if (lane >= o) incl += y;
+      }
+      int run = incl - sum;
+      for (int g = g0; g < g1; ++g) {
+        const int len = dstart[g];
+        int at = cur[g];              // where the segment goes in its run
+        if (split > 1) {
+          at = len ? atomicAdd(&gcur[row0 + g], len) : 0;
+        } else {
+          cur[g] += len;
+        }
+        dstart[g] = run;
+        obase[g] = sdst[g] + at - run;
+        run += len;
+      }
+      if (lane == 31) *nstaged = incl;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < ROUTE_E; ++j) {
+      const int d = (ds[j] >> 16) - 1;
+      if (d >= 0) ds[j] += dstart[d] + wc[d];
+    }
+    const int ns = *nstaged;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+#pragma unroll
+      for (int j = 0; j < ROUTE_E; ++j) {
+        if (!ds[j]) continue;
+        const int at = ds[j] & 0xFFFF;
+        stage[at] = src.p[q][m.base + span + 32 * j] ^ xor_in;
+        if (q == 0) sdig[at] = (uint16_t)((ds[j] >> 16) - 1);
+      }
+      __syncthreads();
+      for (int s = threadIdx.x; s < ns; s += blockDim.x) {
+        const int d = sdig[s];
+        const long long o = obase[d] + s;
+        if (o < oend[d] && o < out_len) out.p[q][o] = stage[s];
+      }
+      if (q == NP - 1) {
+        for (int x = threadIdx.x; x < rows * rmax; x += blockDim.x)
+          wcnt[x] = 0;
+      }
+      __syncthreads();
+    }
+  }
+  // pads occupy [cnt, cnt + npad) of each run, disjoint from the slots;
+  // the tile's first block writes them
+  for (int q = threadIdx.x; sub == 0 && q < rmax * LANES; q += blockDim.x) {
     const int d = q / LANES, j = q % LANES;
     if (sdst[d] < 0) continue;
     const int c = scnt[d];
     if (j < ((-c) & (LANES - 1))) {
       const long long o = sdst[d] + c + j;
       if (o < out_len) {
-        out.p[0][o] = padv[row0 + d];
 #pragma unroll
-        for (int p = 1; p < NP; ++p) out.p[p][o] = SENT;
+        for (int p = 0; p < NP; ++p)
+          out.p[p][o] = p == 0 ? padv[row0 + d] : SENT;
       }
     }
   }
@@ -205,9 +409,9 @@ __global__ void __launch_bounds__(LEVEL_THREADS) route_level_kernel(
 
 // One block per tile, digit mode: a partition that is STABLE by the digit
 // of plane dp, chunk-ranked as in one-sweep radix sorts.  The block walks
-// its tile in input order, one chunk of DIGIT_CHUNK elements at a time.
-// Warp w owns the contiguous span [w * 32 * DIGIT_E, (w + 1) * 32 *
-// DIGIT_E) of the chunk and its lanes take it row by row (element j of
+// its tile in input order, one chunk of ROUTE_CHUNK elements at a time.
+// Warp w owns the contiguous span [w * 32 * ROUTE_E, (w + 1) * 32 *
+// ROUTE_E) of the chunk and its lanes take it row by row (element j of
 // lane l is span element j * 32 + l), so the loads are coalesced and a
 // warp meets its elements in input order.  Ranking, per row: every lane
 // sets its bit in the warp's mask word of its digit (a shared-memory
@@ -230,7 +434,7 @@ __global__ void __launch_bounds__(LEVEL_THREADS) route_level_kernel(
 // skipped by index, never by value (SENT is a real key).  Stores are
 // element-exact with 64-bit addresses.
 template <int NP>
-__global__ void __launch_bounds__(DIGIT_THREADS, 2) route_digit_kernel(
+__global__ void __launch_bounds__(ROUTE_THREADS, 2) route_digit_kernel(
     Planes<NP> src, long long src_len, const int32_t* __restrict__ meta,
     const int32_t* __restrict__ cnt, const int32_t* __restrict__ dst,
     const int32_t* __restrict__ padv, Planes<NP> out, long long out_len,
@@ -243,10 +447,10 @@ __global__ void __launch_bounds__(DIGIT_THREADS, 2) route_digit_kernel(
   int* cur = scnt + rmax;                    // rmax cursors
   int* dstart = cur + rmax;                  // rmax segment starts
   int* wcnt = dstart + rmax;                 // [warp][digit] counts, offsets
-  unsigned* wmask = (unsigned*)(wcnt + DIGIT_WARPS * rmax);  // [warp][digit]
-  int32_t* stage = (int32_t*)(wmask + DIGIT_WARPS * rmax);  // DIGIT_CHUNK
-  uint16_t* sdig = (uint16_t*)(stage + DIGIT_CHUNK);  // their digits
-  int* nstaged = (int*)(sdig + DIGIT_CHUNK);
+  unsigned* wmask = (unsigned*)(wcnt + ROUTE_WARPS * rmax);  // [warp][digit]
+  int32_t* stage = (int32_t*)(wmask + ROUTE_WARPS * rmax);  // ROUTE_CHUNK
+  uint16_t* sdig = (uint16_t*)(stage + ROUTE_CHUNK);  // their digits
+  int* nstaged = (int*)(sdig + ROUTE_CHUNK);
   const int t = blockIdx.x;
   const TileMeta m = tile_meta(meta, t, pitch, src_len);
   const long long row0 = (long long)t * rmax;
@@ -258,7 +462,7 @@ __global__ void __launch_bounds__(DIGIT_THREADS, 2) route_digit_kernel(
     oend[d] = dr >= 0 ? (long long)dr * LANES + c : -1;
     cur[d] = 0;
   }
-  for (int q = threadIdx.x; q < DIGIT_WARPS * rmax; q += blockDim.x) {
+  for (int q = threadIdx.x; q < ROUTE_WARPS * rmax; q += blockDim.x) {
     wcnt[q] = 0;
     wmask[q] = 0;
   }
@@ -267,19 +471,19 @@ __global__ void __launch_bounds__(DIGIT_THREADS, 2) route_digit_kernel(
   const unsigned below = (1u << lane) - 1;
   int* wc = wcnt + w * rmax;
   unsigned* wm = wmask + w * rmax;
-  for (long long c0 = 0; c0 < m.nel; c0 += DIGIT_CHUNK) {
-    const long long span = c0 + (long long)w * 32 * DIGIT_E + lane;
+  for (long long c0 = 0; c0 < m.nel; c0 += ROUTE_CHUNK) {
+    const long long span = c0 + (long long)w * 32 * ROUTE_E + lane;
     // per element one register: (digit + 1) << 16 | its slot (the rank in
     // the warp, then the slot in the stage), 0 where nothing is stored
-    int ds[DIGIT_E];
+    int ds[ROUTE_E];
 #pragma unroll
-    for (int j = 0; j < DIGIT_E; ++j) {
+    for (int j = 0; j < ROUTE_E; ++j) {
       const long long i = span + 32 * j;
       ds[j] = i < m.nel ? (int)digit_of(src.p[dp][m.base + i], shift, mask)
                         : -1;
     }
 #pragma unroll
-    for (int j = 0; j < DIGIT_E; ++j) {
+    for (int j = 0; j < ROUTE_E; ++j) {
       const int g = ds[j];
       const int d = g >= 0 && g < rmax && sdst[g] >= 0 ? g : -1;
       if (d >= 0) atomicOr(&wm[d], 1u << lane);
@@ -302,7 +506,7 @@ __global__ void __launch_bounds__(DIGIT_THREADS, 2) route_digit_kernel(
     for (int g = threadIdx.x; g < rmax; g += blockDim.x) {
       int run = 0;
 #pragma unroll
-      for (int ww = 0; ww < DIGIT_WARPS; ++ww) {
+      for (int ww = 0; ww < ROUTE_WARPS; ++ww) {
         const int c = wcnt[ww * rmax + g];
         wcnt[ww * rmax + g] = run;
         run += c;
@@ -335,7 +539,7 @@ __global__ void __launch_bounds__(DIGIT_THREADS, 2) route_digit_kernel(
     }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < DIGIT_E; ++j) {
+    for (int j = 0; j < ROUTE_E; ++j) {
       const int d = (ds[j] >> 16) - 1;
       if (d >= 0) ds[j] += dstart[d] + wc[d];
     }
@@ -343,7 +547,7 @@ __global__ void __launch_bounds__(DIGIT_THREADS, 2) route_digit_kernel(
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
 #pragma unroll
-      for (int j = 0; j < DIGIT_E; ++j) {
+      for (int j = 0; j < ROUTE_E; ++j) {
         if (!ds[j]) continue;
         const int at = ds[j] & 0xFFFF;
         stage[at] = src.p[q][m.base + span + 32 * j];
@@ -356,7 +560,7 @@ __global__ void __launch_bounds__(DIGIT_THREADS, 2) route_digit_kernel(
         if (o < oend[d] && o < out_len) out.p[q][o] = stage[s];
       }
       if (q == NP - 1) {
-        for (int x = threadIdx.x; x < DIGIT_WARPS * rmax; x += blockDim.x)
+        for (int x = threadIdx.x; x < ROUTE_WARPS * rmax; x += blockDim.x)
           wcnt[x] = 0;
       }
       __syncthreads();
@@ -378,13 +582,6 @@ __global__ void __launch_bounds__(DIGIT_THREADS, 2) route_digit_kernel(
   }
 }
 
-// Dynamic shared memory of route_digit_kernel at rmax digits.
-size_t route_digit_smem(int rmax) {
-  return (size_t)rmax * (3 * sizeof(long long) + 3 * sizeof(int))
-         + 2 * (size_t)DIGIT_WARPS * rmax * sizeof(int)
-         + (size_t)DIGIT_CHUNK * (sizeof(int32_t) + sizeof(uint16_t))
-         + sizeof(int);
-}
 
 // --------------------------------------------- terminal_write, global path
 // The terminal sort of a class whose capacity fits no thread-block
@@ -923,36 +1120,49 @@ __global__ void __launch_bounds__(SPLICE_THREADS) splice_runs_kernel(
   }
 }
 
+// A range-mode route launch; rows, shm (route_range_kernel's shared
+// memory) and split (blocks a tile, with gcur: ntiles x rmax zeroed run
+// cursors when it is above 1) come from the host.
 template <int NP>
 int launch_route(void* const* src, long long src_len, const void* meta,
                  const void* bounds, const void* cnt, const void* dst,
                  const void* padv, void* const* out, long long out_len,
-                 int ntiles, int pitch, int rmax, int32_t xor_in,
-                 cudaStream_t stream) {
-  const size_t shm = (size_t)rmax * (sizeof(long long) + 3 * sizeof(int));
-  route_level_kernel<NP><<<ntiles, LEVEL_THREADS, shm, stream>>>(
+                 int ntiles, int pitch, int rmax, int32_t xor_in, int rows,
+                 long long shm, int split, void* gcur, cudaStream_t stream) {
+  if (rmax < 1 || rmax >= (1 << 16) || rows < 1 || shm < 1 ||
+      shm > (long long)SMEM_MAX || split < 1 ||
+      (split > 1 && gcur == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      route_range_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shm);
+  if (err != cudaSuccess) return (int)err;
+  route_range_kernel<NP><<<(long long)ntiles * split, ROUTE_THREADS,
+                           (size_t)shm, stream>>>(
       planes_of<NP>(src), src_len, (const int32_t*)meta,
       (const int32_t*)bounds, (const int32_t*)cnt, (const int32_t*)dst,
-      (const int32_t*)padv, planes_of<NP>(out), out_len, pitch, rmax,
-      xor_in);
+      (const int32_t*)padv, planes_of<NP>(out), out_len, pitch, rmax, xor_in,
+      rows, split, (int*)gcur);
   return (int)cudaGetLastError();
 }
 
+// A digit-mode route launch; shm (route_digit_kernel's shared memory)
+// comes from the host.
 template <int NP>
 int launch_route_digit(void* const* src, long long src_len,
                        const void* meta, const void* cnt, const void* dst,
                        const void* padv, void* const* out, long long out_len,
                        int ntiles, int pitch, int rmax, int shift,
-                       unsigned mask, int dp, cudaStream_t stream) {
-  // at most the 227 KiB a block may take on the H100: rmax <= 1,117
-  if (rmax < 1 || route_digit_smem(rmax) > 227 * 1024)
+                       unsigned mask, int dp, long long shm,
+                       cudaStream_t stream) {
+  if (rmax < 1 || rmax >= (1 << 16) || shm < 1 ||
+      shm > (long long)SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  const size_t shm = route_digit_smem(rmax);
   cudaError_t err = cudaFuncSetAttribute(
       route_digit_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)shm);
   if (err != cudaSuccess) return (int)err;
-  route_digit_kernel<NP><<<ntiles, DIGIT_THREADS, shm, stream>>>(
+  route_digit_kernel<NP><<<ntiles, ROUTE_THREADS, (size_t)shm, stream>>>(
       planes_of<NP>(src), src_len, (const int32_t*)meta, (const int32_t*)cnt,
       (const int32_t*)dst, (const int32_t*)padv, planes_of<NP>(out), out_len,
       pitch, rmax, shift, mask, dp);
@@ -1031,24 +1241,30 @@ const char* kv_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// hist_level: range mode when shift < 0, else digit mode; copies, shm
+// (hist_kernel's shared memory) and split (blocks a tile; hist zeroed
+// when it is above 1) come from the host.
 int kv4_hist_level(const void* src, long long src_len, const void* meta,
                    const void* bounds, void* hist, int ntiles, int pitch,
-                   int rmax, int bias_input, void* stream) {
-  const size_t shm = 2 * (size_t)rmax * sizeof(int32_t);
-  hist_level_kernel<<<ntiles, LEVEL_THREADS, shm, (cudaStream_t)stream>>>(
+                   int rmax, int bias_input, int shift, int bits, int copies,
+                   long long shm, int split, void* stream) {
+  if (rmax < 1 || copies < 1 || (copies & (copies - 1)) || shm < 1 ||
+      shm > (long long)SMEM_MAX || split < 1)
+    return (int)cudaErrorInvalidValue;
+  void (*kernel)(const int32_t*, long long, const int32_t*, const int32_t*,
+                 int32_t*, int, int, int32_t, int, unsigned, int, int) =
+      shift < 0 ? hist_kernel<true> : hist_kernel<false>;
+  if (shm > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(long long)ntiles * split, HIST_THREADS, (size_t)shm,
+           (cudaStream_t)stream>>>(
       (const int32_t*)src, src_len, (const int32_t*)meta,
       (const int32_t*)bounds, (int32_t*)hist, pitch, rmax,
-      bias_input ? BIAS : 0);
-  return (int)cudaGetLastError();
-}
-
-int kv4_hist_digit(const void* src, long long src_len, const void* meta,
-                   void* hist, int ntiles, int pitch, int rmax, int shift,
-                   int bits, void* stream) {
-  const size_t shm = (size_t)rmax * sizeof(int32_t);
-  hist_digit_kernel<<<ntiles, LEVEL_THREADS, shm, (cudaStream_t)stream>>>(
-      (const int32_t*)src, src_len, (const int32_t*)meta, (int32_t*)hist,
-      pitch, rmax, shift, (unsigned)((1ull << bits) - 1));
+      bias_input ? BIAS : 0, shift < 0 ? 0 : shift,
+      (unsigned)((1ull << bits) - 1), copies, split);
   return (int)cudaGetLastError();
 }
 
@@ -1057,7 +1273,7 @@ int kv4_route_digit(void* s0, void* s1, void* s2, void* s3,
                     const void* dst, const void* padv, void* o0, void* o1,
                     void* o2, void* o3, long long out_len, int nplanes,
                     int ntiles, int pitch, int rmax, int shift, int bits,
-                    int digit_plane, void* stream) {
+                    int digit_plane, long long shm, void* stream) {
   void* const src[MAX_PLANES] = {s0, s1, s2, s3};
   void* const out[MAX_PLANES] = {o0, o1, o2, o3};
   const unsigned mask = (unsigned)((1ull << bits) - 1);
@@ -1065,27 +1281,29 @@ int kv4_route_digit(void* s0, void* s1, void* s2, void* s3,
   switch (nplanes) {
     case 1: return launch_route_digit<1>(src, src_len, meta, cnt, dst, padv,
                                          out, out_len, ntiles, pitch, rmax,
-                                         shift, mask, digit_plane, st);
+                                         shift, mask, digit_plane, shm, st);
     case 2: return launch_route_digit<2>(src, src_len, meta, cnt, dst, padv,
                                          out, out_len, ntiles, pitch, rmax,
-                                         shift, mask, digit_plane, st);
+                                         shift, mask, digit_plane, shm, st);
     case 3: return launch_route_digit<3>(src, src_len, meta, cnt, dst, padv,
                                          out, out_len, ntiles, pitch, rmax,
-                                         shift, mask, digit_plane, st);
+                                         shift, mask, digit_plane, shm, st);
     case 4: return launch_route_digit<4>(src, src_len, meta, cnt, dst, padv,
                                          out, out_len, ntiles, pitch, rmax,
-                                         shift, mask, digit_plane, st);
+                                         shift, mask, digit_plane, shm, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Plane pointers come as four arguments each (NULL past nplanes).
+// route_level's range and accumulate modes.  Plane pointers come as four
+// arguments each (NULL past nplanes).
 int kv4_route_level(void* s0, void* s1, void* s2, void* s3,
                     long long src_len, const void* meta, const void* bounds,
                     const void* cnt, const void* dst, const void* padv,
                     void* o0, void* o1, void* o2, void* o3,
                     long long out_len, int nplanes, int ntiles, int pitch,
-                    int rmax, int bias_input, void* stream) {
+                    int rmax, int bias_input, int rows, long long shm,
+                    int split, void* gcur, void* stream) {
   void* const src[MAX_PLANES] = {s0, s1, s2, s3};
   void* const out[MAX_PLANES] = {o0, o1, o2, o3};
   const int32_t x = bias_input ? BIAS : 0;
@@ -1093,16 +1311,16 @@ int kv4_route_level(void* s0, void* s1, void* s2, void* s3,
   switch (nplanes) {
     case 1: return launch_route<1>(src, src_len, meta, bounds, cnt, dst,
                                    padv, out, out_len, ntiles, pitch, rmax,
-                                   x, st);
+                                   x, rows, shm, split, gcur, st);
     case 2: return launch_route<2>(src, src_len, meta, bounds, cnt, dst,
                                    padv, out, out_len, ntiles, pitch, rmax,
-                                   x, st);
+                                   x, rows, shm, split, gcur, st);
     case 3: return launch_route<3>(src, src_len, meta, bounds, cnt, dst,
                                    padv, out, out_len, ntiles, pitch, rmax,
-                                   x, st);
+                                   x, rows, shm, split, gcur, st);
     case 4: return launch_route<4>(src, src_len, meta, bounds, cnt, dst,
                                    padv, out, out_len, ntiles, pitch, rmax,
-                                   x, st);
+                                   x, rows, shm, split, gcur, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

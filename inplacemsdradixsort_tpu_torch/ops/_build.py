@@ -43,12 +43,12 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PLANES = [_P] * 4            # one pointer per plane, NULL past nplanes
 _SIGNATURES = {
     # kernels_v4.cu
-    "kv4_hist_level": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P],
+    "kv4_hist_level": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _LL, _I, _P],
     "kv4_route_level": _PLANES + [_LL, _P, _P, _P, _P, _P] + _PLANES
-    + [_LL, _I, _I, _I, _I, _I, _P],
-    "kv4_hist_digit": [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _P],
+    + [_LL, _I, _I, _I, _I, _I, _I, _LL, _I, _P, _P],
     "kv4_route_digit": _PLANES + [_LL, _P, _P, _P, _P] + _PLANES
-    + [_LL, _I, _I, _I, _I, _I, _I, _I, _P],
+    + [_LL, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
     "kv4_terminal_write": _PLANES + [_LL, _P, _I] + _PLANES
     + [_LL, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "kv4_terminal_cluster": _PLANES + [_LL, _P, _I] + _PLANES

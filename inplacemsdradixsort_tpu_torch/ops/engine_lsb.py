@@ -66,6 +66,7 @@ def _geometry(n: int, bits: int, sort_rows: int):
     if pitch <= 0:
         raise ValueError(f"v3_sort_rows={sort_rows} leaves no tile rows "
                          f"beside {1 << bits} digits")
+    kv4.check_level_width(1 << bits, digit=True)
     ntiles = _ceil_div(_ceil_div(n, LANES), pitch)
     rows_in = ntiles * pitch
     arena_rows = _shape_class(

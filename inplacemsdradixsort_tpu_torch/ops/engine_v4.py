@@ -175,6 +175,7 @@ def _dev_geometry(n: int, nplanes: int, cfg: SortConfig,
     pitch = sort_rows - rmax
     if pitch <= 0:
         raise ValueError(f"v3_sort_rows={sort_rows} must exceed rmax={rmax}")
+    kv4.check_level_width(rmax)
     rows_in = _ceil_div(n, LANES)
     ntiles1 = _ceil_div(rows_in, pitch)
     rows1_max = rows_in + ntiles1 * rmax

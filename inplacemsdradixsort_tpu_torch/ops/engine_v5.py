@@ -152,6 +152,7 @@ def _v5_geometry(n: int, nplanes: int, cfg: SortConfig,
         (r for r in (32, 48, 64, 96, 128) if r * r >= nb_want * 1.4), 128)
     sort_rows2 = cfg.v3_sort_rows
     pitch2 = sort_rows2 - rmax
+    kv4.check_level_width(rmax)
     pitch1 = cfg.v5_pitch_rows or 2048
     if (pitch1 * LANES) & (pitch1 * LANES - 1):
         raise ValueError(f"v5_pitch_rows={pitch1}: rows x 128 must be a "

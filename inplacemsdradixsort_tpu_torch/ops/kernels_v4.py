@@ -24,8 +24,9 @@ The accumulate mode (``arenas`` given) routes into arenas that earlier
 calls filled, the chunked sort's routes.
 
 Order inside a range-mode route run is not part of the contract: the TPU
-sorts the whole tile because it has no scatter, the CUDA kernel scatters
-with atomics.  ``canonical_runs`` sorts every stored run so that two arenas
+sorts the whole tile because it has no scatter, the CUDA kernel places
+elements in the order its shared-memory atomics give them.
+``canonical_runs`` sorts every stored run so that two arenas
 compare.  The order does reach one thing downstream: level-2 tiles are
 cut from the level-1 arena every ``pitch`` rows, through runs, so the
 per-tile L2 counts (and from them ``rows_c2``, ``start2`` and the number
@@ -59,6 +60,15 @@ TERM_TILE = {1: 16384, 2: 8192, 3: 8192, 4: 4096}
 CS_CTA_LOG = {1: 15, 2: 14, 3: 14, 4: 13}
 CS_W = {1: 5, 2: 4, 3: 4, 4: 4}
 CS_MAX_CTAS = 16
+# the level kernels (csrc/kernels_v4.cu): the shared memory a block may
+# take on the H100, hist_kernel's budget for its sub-histograms (the
+# default a launch may take without an attribute), and the route
+# kernels' warps and chunk of elements ranked and staged at once
+SMEM_MAX = 227 * 1024
+HIST_SMEM = 48 * 1024
+ROUTE_WARPS = 16
+ROUTE_CHUNK = 8192
+LUT_CELLS = 4096       # the range lookup's cells over the parent's bounds
 
 # launches of each kernel since the last reset (plain versions not
 # counted); the modes of the level kernels count apart: ".digit" (the LSB
@@ -434,6 +444,92 @@ def canonical_runs(arenas, dst, cnt, rows):
     return tuple(outs)
 
 
+# ------------------------------------------- level kernel layouts
+
+def hist_layout(rmax: int, digit: bool = False) -> Tuple[int, int]:
+    """(copies, shared bytes) of a ``hist_level`` launch at ``rmax``
+    bins: ``copies`` sub-histograms (16 / copies warps share one), the
+    bounds and, in range mode, the lookup table; the most copies of 16,
+    8, 4, 2, 1 that fit HIST_SMEM, else one up to SMEM_MAX.  The one
+    place of this rule: the launch takes both."""
+    lut = 0 if digit else 2 * (LUT_CELLS + 1)
+    for copies in (16, 8, 4, 2, 1):
+        shm = 4 * rmax * (copies + 1) + lut
+        if shm <= HIST_SMEM or (copies == 1 and shm <= SMEM_MAX):
+            return copies, shm
+    raise ValueError(f"hist_level: rmax={rmax} bins need {shm} bytes of "
+                     f"shared memory a block, past the H100's {SMEM_MAX}")
+
+
+def _route_per_bin(rows: int, digit: bool) -> int:
+    # three int64 and three int32 tables a bin, the bounds (range mode),
+    # and rows count tables (digit mode: count and mask tables)
+    return 36 + 8 * rows if digit else 40 + 4 * rows
+
+
+def route_smem(rmax: int, rows: int, digit: bool) -> int:
+    """Shared bytes of a ``route_level`` launch at ``rmax`` bins with
+    ``rows`` tables, in its kernel's layout (``route_digit_kernel``,
+    ``route_range_kernel``): the per-bin tables, the staged chunk (int32
+    words and uint16 bins), one int and, in range mode, the lookup
+    table."""
+    return (_route_per_bin(rows, digit) * rmax + 6 * ROUTE_CHUNK + 4
+            + (0 if digit else 2 * (LUT_CELLS + 1)))
+
+
+def route_max_rmax(digit: bool, rows: int) -> int:
+    """The widest rmax a ``route_level`` launch with ``rows`` tables
+    holds: 1,117 digits, 1,683 ranges with a table a warp, 3,979 ranges
+    with one shared table."""
+    return (SMEM_MAX - route_smem(0, 0, digit)) // _route_per_bin(rows,
+                                                                   digit)
+
+
+def route_layout(rmax: int, digit: bool = False) -> Tuple[int, int]:
+    """(rows, shared bytes) of a ``route_level`` launch at ``rmax`` bins:
+    a count table per warp (ROUTE_WARPS rows; the digit mode's stable
+    ranking also a mask table) when they fit SMEM_MAX, else, in range
+    mode, one count table the warps share.  A width neither holds raises
+    ``ValueError`` naming the limit; the engines call this from their
+    geometry, before anything is allocated or launched.  The one place
+    of this rule: the launch takes both."""
+    for rows in (ROUTE_WARPS,) if digit else (ROUTE_WARPS, 1):
+        shm = route_smem(rmax, rows, digit)
+        if shm <= SMEM_MAX:
+            return rows, shm
+    widest = route_max_rmax(digit, rows)
+    raise ValueError(
+        f"route_level: rmax={rmax} {'digits' if digit else 'ranges'} need "
+        f"{shm} bytes of shared memory a block, past the H100's "
+        f"{SMEM_MAX}: at most {widest} "
+        f"{'digits (lsb_digit_bits <= 10)' if digit else 'ranges (v3_rmax)'}")
+
+
+_SM_COUNT = {}
+
+
+def level_split(ntiles: int, pitch: int, device: torch.device) -> int:
+    """Blocks a tile gets in a level launch: one, unless the launch has
+    fewer tiles than two blocks for every SM of the card; then enough
+    for that, at most one for each ROUTE_CHUNK elements of a tile.  The
+    blocks of a tile take its chunks in turn (hist_level adds their
+    counts into a zeroed row; the range route takes each chunk's run
+    segments with global atomics on zeroed run cursors, so the order
+    inside a run is not stable).  A host rule on the launch's shape."""
+    if device not in _SM_COUNT:
+        _SM_COUNT[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    chunks = -(-pitch * LANES // ROUTE_CHUNK)
+    return max(1, min(chunks, -(-2 * _SM_COUNT[device] // max(ntiles, 1))))
+
+
+def check_level_width(rmax: int, digit: bool = False) -> None:
+    """Raise ``ValueError`` if the level kernels cannot run ``rmax``
+    bins on the card (``route_layout`` binds before ``hist_layout``)."""
+    route_layout(rmax, digit)
+    hist_layout(rmax, digit)
+
+
 # ---------------------------------------------------------- kernels
 
 def hist_level(src: torch.Tensor, meta: torch.Tensor, bounds: torch.Tensor,
@@ -455,32 +551,45 @@ def hist_level(src: torch.Tensor, meta: torch.Tensor, bounds: torch.Tensor,
 
     Replaces ``kernels_v4.py:77-204`` (``_hist_kernel``, both modes).  On
     the H100 it is bound by reading the keys once from device memory (4
-    bytes a key) and by shared-memory atomics under skew.  Design: one
-    block per tile, shared-memory counters; range mode finds the range by
-    binary search over the parent's bounds in shared memory, and skips
-    slack lanes by index, since SENT equals a real biased 0xFFFFFFFF;
-    digit mode has its own kernel (``hist_digit_kernel``), in which the
-    lanes of a warp that share a digit add once (``__match_any_sync``),
-    so that few distinct digits do not serialise the atomics.  CUDA
-    rather than Triton: the binary search and the counters live in
-    shared memory with shared atomics and warp match intrinsics, which
-    Triton's block model does not express, and the kernel shares
-    ``route_level``'s tile layout and launcher.
+    bytes a key), if the counting keeps up.  Design (``hist_kernel``, one
+    template for both modes): one block of 512 threads per tile reads the
+    tile with 16-byte loads, four a thread per step (element by element
+    where a plane view's tile start is not 16-byte aligned; the tail past
+    the tile's count is skipped by index, since SENT equals a real biased
+    0xFFFFFFFF); range mode finds each key's range through the lookup
+    table of ``route_level``'s range mode and the parent's bounds in
+    shared memory, digit mode takes the digit by a logical shift
+    (``bounds`` not read).  Each warp counts into its own shared-memory
+    sub-histogram (``hist_layout`` picks how many from rmax), summed at
+    the end, so warps do not contend for a counter under a heavy key.  A
+    warp's lanes add one each: aggregating a warp's equal bins first
+    (warp ballots, an atomicOr mask, or a whole-warp test) measured
+    slower on every input tried, all-equal keys included (a first version
+    with ballots and a search over all the bounds took 264-270 ms over
+    ``chip_smoke.py``'s checked range-mode launches where this one takes
+    113-125, NVIDIA H100 80GB HBM3, 700 W).  A launch with fewer tiles
+    than two blocks for every SM gives each tile several blocks
+    (``level_split``), which add their counts into a zeroed row.  CUDA
+    rather than Triton: the counters live in shared memory with shared
+    atomics, which Triton's block model does not express, and the kernel
+    shares
+    ``route_level``'s tile layout, lookup table and launcher.
     """
     _check_level(src, meta, bounds, ntiles, rmax)
     _check_digit(digit_shift, digit_bits, bias_input)
     if src.device.type == "cpu":
         return hist_level_ref(src, meta, bounds, ntiles, pitch, rmax,
                               bias_input, digit_shift, digit_bits)
-    hist = torch.empty((ntiles, rmax), dtype=torch.int32, device=src.device)
-    if ntiles and digit_shift is not None:
-        _launch("hist_level.digit", "kv4_hist_digit", src.device,
-                _p(src), src.numel(), _p(meta), _p(hist), ntiles, pitch,
-                rmax, digit_shift, digit_bits)
-    elif ntiles:
-        _launch("hist_level", "kv4_hist_level", src.device,
-                _p(src), src.numel(), _p(meta), _p(bounds), _p(hist),
-                ntiles, pitch, rmax, int(bias_input))
+    digit = digit_shift is not None
+    copies, shm = hist_layout(rmax, digit)
+    split = level_split(ntiles, pitch, src.device)
+    hist = (torch.zeros if split > 1 else torch.empty)(
+        (ntiles, rmax), dtype=torch.int32, device=src.device)
+    if ntiles:
+        _launch("hist_level.digit" if digit else "hist_level",
+                "kv4_hist_level", src.device, _p(src), src.numel(), _p(meta),
+                _p(bounds), _p(hist), ntiles, pitch, rmax, int(bias_input),
+                digit_shift if digit else -1, digit_bits, copies, shm, split)
     return hist
 
 
@@ -524,44 +633,61 @@ def route_level(srcs: Sequence[torch.Tensor], meta: torch.Tensor,
     On the H100 every mode is bound by one read and one scattered write
     of every plane of every element.
 
-    Range mode design: one block per tile; each element claims a slot of
-    its run with a shared-memory ``atomicAdd`` on plane 0's range (order
-    inside a run is therefore not defined) and stores every plane at
-    that slot, then the pads fill the run's tail.  Accumulate mode is the
+    Range mode design (``route_range_kernel``, chunk-ranked as in
+    one-sweep radix sorts): one block of 512 threads per tile walks the
+    tile a chunk of 8,192 elements at a time for every plane count (16 a
+    thread); warp w owns a contiguous span of the chunk and its lanes take
+    it row by row, so loads are coalesced.  Each key's range comes from a
+    4,096-cell lookup table over the span of the parent's bounds, built
+    per block in shared memory, which leaves a search over the few bounds
+    of the key's cell instead of all of them.  An element takes the next
+    count of its range in its warp's shared-memory count table with one
+    atomicAdd (a warp row whose lanes all share a
+    range, a heavy key, takes 32 at once); one pass over (range, warp) and
+    a warp-0 scan of the ranges give every element its slot in the chunk
+    and each run's cursor, which carries from chunk to chunk; the chunk
+    then goes plane by plane into shared memory in range order and
+    consecutive threads store consecutive elements of a run, so stores
+    come as runs of sectors (~85 elements a chunk at rmax 96) instead of
+    one 4-byte store per element.  3 + 2 x planes block barriers a chunk.
+    A launch with fewer tiles than two blocks for every SM (the deep
+    tier's and v5's small routes) gives each tile several blocks
+    (``level_split``), which take its chunks in turn and their place in
+    each run with a global atomicAdd on the run's cursor (a zeroed table
+    the wrapper allocates; no sync).  Ranking by shared-memory atomicOr
+    masks (stable) and by warp ballots (one a bit of the range) measured
+    slower than the per-warp atomics at the engines' shapes, and the
+    order inside a run is free in range mode.  Accumulate mode is the
     same kernel storing into the caller's arenas: since its stores are
     element-exact, rows outside its runs keep what earlier calls wrote.
 
-    Digit mode design (``route_digit_kernel``, chunk-ranked as in
-    one-sweep radix sorts): one block of 512 threads per tile walks the
-    tile in input order, a chunk of 8,192 elements at a time for every
-    plane count (16 a thread; 89 KiB of shared memory at 8-bit digits, so
-    two blocks an SM; past rmax 1,117 a block would need more than the
-    H100's 227 KiB, and the launch fails with a RuntimeError, no
-    fallback: the engines pass at most 1,024).  Warp w owns a contiguous span of the chunk and
-    its lanes take it row by row, so loads are coalesced and a warp meets
-    its elements in input order.  A row is ranked by a shared-memory
-    ``atomicOr`` of each lane's bit into its warp's mask word of the
-    digit (the lanes sharing the digit; ``__match_any_sync`` is
-    microcoded and was the first version's bottleneck): an element's
+    Digit mode design (``route_digit_kernel``): the same chunked
+    skeleton, ranked stably by a per-(warp, digit) shared-memory
+    ``atomicOr`` mask (the lanes sharing the digit; ``__match_any_sync``
+    is microcoded and was its first version's bottleneck): an element's
     rank is its warp's running count of the digit plus the mask's lanes
-    below it.  One pass over (digit, warp) and a warp-0 scan of the
-    digits give every element its slot in the chunk, in stable digit
-    order, and each run's cursor, which carries from chunk to chunk; the
-    chunk then goes plane by plane into shared memory in that order and
-    consecutive threads store consecutive elements of a digit's run, so
-    stores come as runs of sectors (at 8-bit digits a run averages 32
-    elements a chunk) instead of one 4-byte store per element.  3 + 2 x
-    planes block barriers a chunk, where the first version had two per
-    512 elements.
+    below it, so each run holds its tuples in input order.  A version
+    that shared one template with the range mode (ranking by warp
+    ballots) took 66.3-66.8 ms over ``chip_smoke.py``'s 24 checked digit
+    routes where this kernel takes 53.4-54.2 (NVIDIA H100 80GB HBM3,
+    700 W), so the two stay apart.
 
-    All kernels are templated on the plane count, so a keys-only launch
+    Shared memory (``route_layout``, decided on the host before the
+    launch, the launch setting its attribute): 66 KiB at rmax 96 in range
+    mode, 89 KiB at 8-bit digits, so two blocks an SM.  A count table a
+    warp fits up to 1,683 ranges or 1,117 digits; past 1,683 the range
+    mode shares one table among the warps, up to 3,979.  Wider launches
+    raise ``ValueError``, and the engines refuse such widths in their
+    geometry (``v3_rmax`` above 3,979, ``lsb_digit_bits`` above 10).
+
+    All modes are templated on the plane count, so a keys-only launch
     does no per-plane work; stores are element-exact (the TPU's 64-row
     chunk stores overshoot and rely on an in-order grid) and addresses
     are 64-bit, so an arena may pass 2^31 elements.  CUDA rather than
-    Triton: each element's slot comes from a shared-memory atomic, or
-    from per-warp shared-memory masks and an in-order scan across the
-    warps of a block, and the stores are a data-dependent scatter;
-    Triton's block model expresses none of these.
+    Triton: each element's slot comes from per-warp shared-memory counts
+    and masks and an in-order scan across the warps of a block, and the
+    stores are a data-dependent scatter; Triton's block model expresses
+    none of these.
     """
     srcs = _check_planes("srcs", srcs, meta.device)
     tables = (("cnt", cnt), ("dst", dst), ("padv", padv))
@@ -581,22 +707,29 @@ def route_level(srcs: Sequence[torch.Tensor], meta: torch.Tensor,
         return route_level_ref(srcs, meta, bounds, cnt, dst, padv, dst_rows,
                                ntiles, pitch, rmax, bias_input, digit_shift,
                                digit_bits, digit_plane, arenas)
+    digit = digit_shift is not None
+    rows, shm = route_layout(rmax, digit)
+    split = 1 if digit else level_split(ntiles, pitch, dev)
     outs = arenas if arenas is not None else tuple(
         torch.empty((dst_rows, LANES), dtype=torch.int32, device=dev)
         for _ in srcs)
     if not ntiles:
         return outs
-    if digit_shift is not None:
+    if digit:
         _launch("route_level.digit", "kv4_route_digit", dev,
                 *_pp(srcs), srcs[0].numel(), _p(meta), _p(cnt), _p(dst),
                 _p(padv), *_pp(outs), outs[0].numel(), len(srcs), ntiles,
-                pitch, rmax, digit_shift, digit_bits, digit_plane)
-    else:
-        _launch("route_level" if arenas is None
-                else "route_level.accumulate", "kv4_route_level", dev,
-                *_pp(srcs), srcs[0].numel(), _p(meta), _p(bounds), _p(cnt),
-                _p(dst), _p(padv), *_pp(outs), outs[0].numel(), len(srcs),
-                ntiles, pitch, rmax, int(bias_input))
+                pitch, rmax, digit_shift, digit_bits, digit_plane, shm)
+        return outs
+    # the run cursors, when blocks share a tile
+    gcur = (torch.zeros(ntiles * rmax, dtype=torch.int32, device=dev)
+            if split > 1 else None)
+    _launch("route_level" if arenas is None else "route_level.accumulate",
+            "kv4_route_level", dev, *_pp(srcs), srcs[0].numel(), _p(meta),
+            _p(bounds), _p(cnt), _p(dst), _p(padv), *_pp(outs),
+            outs[0].numel(), len(srcs), ntiles, pitch, rmax, int(bias_input),
+            rows, shm, split,
+            ctypes.c_void_p(0) if gcur is None else _p(gcur))
     return outs
 
 

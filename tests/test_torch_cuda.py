@@ -151,11 +151,116 @@ def _replay(wrappers, calls):
         assert all(torch.equal(g, w) for g, w in zip(got, want)), (name, kw)
 
 
+def _level_call(cuda, rng, nplanes, rmax, nels, keys=None, bias=False,
+                digit=None, drop=(), accumulate=False, offset=0,
+                narrow=False):
+    """One hist_level and one route_level call on tiles of ``nels``
+    elements (tile t at row t * pitch of the planes, parent t % 2), each
+    held against its plain version as ``_replay`` does.  ``keys(n)``
+    makes plane 0 (default uniform); bounds lie below 2^30, so the
+    largest keys are above every bound; ``narrow`` draws bounds (with
+    repeats) and keys from a span of a few thousand values, as an L2
+    tile's parent has them.  ``digit`` = (shift, bits,
+    plane) runs the digit modes; ``drop`` lists the ranges whose runs are
+    not stored ("heavy": each tile's largest); ``accumulate`` routes into
+    random arenas with a free row between runs; ``offset`` moves every
+    plane one element off its 16-byte alignment."""
+    pitch = max(1, -(-max(nels) // LANES))
+    ntiles, n = len(nels), len(nels) * pitch * LANES
+    planes = [rng.integers(-2**31, 2**31, n + offset, dtype=np.int64)
+              .astype(np.int32) for _ in range(nplanes)]
+    if keys is not None:
+        planes[0][offset:] = keys(n)
+    elif narrow:
+        planes[0][offset:] = rng.integers(900, 4100, n)
+    srcs = tuple(torch.from_numpy(p).to(cuda)[offset:] for p in planes)
+    meta = torch.tensor([[t % 2, t * pitch, nel] for t, nel in
+                         enumerate(nels)], dtype=torch.int32,
+                        device=cuda).reshape(-1)
+    shift, bits, dp = digit if digit else (None, 0, 0)
+    if digit:
+        bounds = torch.arange(rmax, dtype=torch.int32, device=cuda)
+    else:
+        lo, hi = (1000, 4000) if narrow else (-2**31, 2**30)
+        bounds = torch.from_numpy(np.sort(rng.integers(
+            lo, hi, (2, rmax)), axis=1).astype(np.int32)) \
+            .to(cuda).reshape(-1)
+    mode = dict(bias_input=bias, digit_shift=shift, digit_bits=bits)
+    hargs = [srcs[dp], meta, bounds, ntiles, pitch, rmax]
+    cnt = kv4.hist_level_ref(*hargs, **mode)
+    keep = torch.ones_like(cnt, dtype=torch.bool)
+    if drop == "heavy":
+        keep[torch.arange(ntiles), cnt.argmax(1)] = False
+    elif drop:
+        keep[:, list(drop)] = False
+    rows = torch.where(keep, (cnt.long() + LANES - 1) // LANES + 1, 0)
+    dst = torch.where(keep, torch.cumsum(rows.reshape(-1), 0).view_as(rows)
+                      - rows, -1).to(torch.int32)
+    dst_rows = max(int(rows.sum().item()), 1)
+    padv = torch.from_numpy(rng.integers(-2**31, 2**31, (ntiles, rmax))
+                            .astype(np.int32)).to(cuda)
+    arenas = tuple(torch.from_numpy(rng.integers(
+        -2**31, 2**31, (dst_rows, LANES)).astype(np.int32)).to(cuda)
+                   for _ in srcs) if accumulate else None
+    _replay({k: getattr(kv4, k) for k in ("hist_level", "route_level")},
+            [("hist_level", hargs, mode),
+             ("route_level", [srcs, meta, bounds, cnt, dst, padv, dst_rows,
+                              ntiles, pitch, rmax],
+              dict(mode, digit_plane=dp, arenas=arenas))])
+
+
+def _check_level_edges(cuda, nplanes):
+    """hist_level and route_level with ``nplanes`` planes at their edges:
+    tiles shorter than a chunk, one element past one, a partial third
+    chunk, empty and of 3 elements (no 16-byte vector); bounds and keys
+    in a narrow span, all keys in one range, all above every bound, a
+    dropped heavy range, dropped ranges
+    in accumulate mode (unowned rows unchanged), bias_input on planes off
+    their 16-byte alignment; rmax 1, the widest with per-warp count
+    tables and the widest that runs (one shared table); the digit modes
+    with digits >= rmax, a heavy digit, rmax 1 and the widest digit
+    route (11-bit digits, those past rmax counted nowhere)."""
+    rng = np.random.default_rng(60 + nplanes)
+    c = kv4.ROUTE_CHUNK
+    edges = [1000, c + 1, 2 * c + 5, 0, 3]
+    warp_max, flat_max, digit_max = (
+        kv4.route_max_rmax(False, kv4.ROUTE_WARPS),
+        kv4.route_max_rmax(False, 1), kv4.route_max_rmax(True,
+                                                         kv4.ROUTE_WARPS))
+
+    def const(v, frac=1.0):
+        def make(n):
+            x = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(
+                np.int32)
+            x[rng.random(n) < frac] = v
+            return x
+        return make
+    cases = [dict(rmax=96, nels=edges),
+             dict(rmax=96, nels=edges, narrow=True),
+             dict(rmax=96, nels=edges, bias=True, offset=1),
+             dict(rmax=96, nels=edges, keys=const(12345)),
+             dict(rmax=96, nels=edges, keys=const(2**31 - 1)),
+             dict(rmax=96, nels=edges, keys=const(-7, 0.5), drop="heavy"),
+             dict(rmax=96, nels=edges, drop=(0, 5, 95), accumulate=True),
+             dict(rmax=1, nels=edges),
+             dict(rmax=warp_max, nels=[c + 1, 1000]),
+             dict(rmax=flat_max, nels=[c + 1, 1000], keys=const(5, 0.3)),
+             dict(rmax=256, nels=edges, digit=(0, 8, nplanes - 1)),
+             dict(rmax=200, nels=edges, digit=(24, 8, 0), offset=1),
+             dict(rmax=256, nels=edges, digit=(8, 8, 0),
+                  keys=const(0xAB00, 0.7)),
+             dict(rmax=1, nels=edges, digit=(28, 4, 0)),
+             dict(rmax=digit_max, nels=[c + 1], digit=(21, 11, 0))]
+    for case in cases:
+        _level_call(cuda, rng, nplanes, **case)
+
+
 def test_kernels_match_plain_versions(cuda):
     """Record one tiny-geometry sort's kernel calls; rerun each kernel and
     its plain version on the same CUDA tensors.  Then the v3 kernels
     (``_check_v3_on_card``), the LSB engine (``_check_lsb_on_card``) and
-    the chunked sort (``_check_chunked_on_card``)."""
+    the chunked sort (``_check_chunked_on_card``), and the level
+    kernels' edges, keys only (``_check_level_edges``)."""
     x = torch.from_numpy(_keys(70_000, 2).view(np.int32)).to(cuda)
     wrappers, calls = _record(
         lambda: engine_v4.sort_v4(x, (), SortConfig(**TINY)))
@@ -164,23 +269,28 @@ def test_kernels_match_plain_versions(cuda):
     _check_v3_on_card(cuda)
     _check_lsb_on_card(cuda)
     _check_chunked_on_card(cuda)
+    _check_level_edges(cuda, 1)
 
 
 @pytest.mark.parametrize("nvals", [1, 2, 3])
 def test_multiplane_kernels_match_plain_versions(cuda, nvals):
     """A pairs sort with 1-3 payload planes (u32 rid; u64 rid; u64 key +
-    u64 rid): every kernel call equal to its plain version."""
+    u64 rid): every kernel call equal to its plain version; then the
+    level kernels' edges with 2-4 planes (``_check_level_edges``)."""
     planes = [torch.from_numpy(_keys(70_000, 10 + p).view(np.int32))
               .to(cuda) for p in range(1 + nvals)]
     wrappers, calls = _record(lambda: engine_v4.sort_v4(
         planes[0], tuple(planes[1:]), SortConfig(**TINY)))
     assert {c[0] for c in calls} == set(wrappers) - {"splice_runs"}
     _replay(wrappers, calls)
+    _check_level_edges(cuda, 1 + nvals)
 
 
 def test_deep_kernels_match_plain_versions(cuda):
     """The deep tier on u64 keys with 8 distinct hi words: its route and
-    splice calls equal their plain versions."""
+    splice calls equal their plain versions.  Then the level kernels on
+    tiles of the engines' geometry (928 rows, rmax 96) with half the keys
+    one value, its range stored and dropped."""
     rng = np.random.default_rng(3)
     n = 1 << 18
     hi = rng.choice(np.array([3, 9, 17, 40, 1000, 2**31, 2**32 - 5, 77],
@@ -191,6 +301,11 @@ def test_deep_kernels_match_plain_versions(cuda):
         lambda: deep.deep_sort(p[0], (p[1],), SortConfig()))
     assert "splice_runs" in {c[0] for c in calls}
     _replay(wrappers, calls)
+    heavy = rng.integers(0, 2**31, 1 << 18).astype(np.int32)
+    heavy[rng.random(heavy.size) < 0.5] = 777
+    for drop in ((), "heavy"):
+        _level_call(cuda, rng, 2, 96, [928 * LANES, 928 * LANES - 77],
+                    keys=lambda n: heavy[:n], drop=drop)
 
 
 @pytest.mark.parametrize("kind", ["pairs_u64", "u64", "i64", "f32", "i32",

@@ -450,3 +450,46 @@ def test_wrappers_validate_inputs():
     before = dict(tk.LAUNCHES)
     tk.hist_level(src, meta, bounds, 1, PITCH, RMAX)
     assert tk.LAUNCHES == before      # plain versions count no launches
+    _check_level_widths()
+
+
+def _check_level_widths():
+    """The level kernels' widths on the card (ROADMAP C16): count tables
+    a warp up to 1,683 ranges or 1,117 digits (with mask tables), one
+    shared count table (range mode) up to 3,979 ranges; wider ones
+    are refused with a ValueError by the engines' geometry, before
+    anything is allocated or launched; v3_rmax 2,500 (past the first
+    range route's 48 KiB) and 10-bit digits sort (here on the plain
+    versions)."""
+    from inplacemsdradixsort_tpu_torch import SortConfig, sort
+    from inplacemsdradixsort_tpu_torch.ops import (engine_lsb, engine_v4,
+                                                   engine_v5)
+    assert (tk.route_max_rmax(True, 16), tk.route_max_rmax(False, 16),
+            tk.route_max_rmax(False, 1)) == (1117, 1683, 3979)
+    assert tk.route_layout(96) == (16, 67334)
+    assert tk.route_layout(256, True) == (16, 91140)
+    assert tk.route_layout(1684)[0] == 1
+    assert tk.hist_layout(96) == (16, 14722)
+    assert tk.hist_layout(1024, True)[0] == 8
+    for rmax, digit in ((1118, True), (3980, False)):
+        with pytest.raises(ValueError, match="shared memory"):
+            tk.route_layout(rmax, digit)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.hist_layout(29057, True)
+    wide = SortConfig(v3_rmax=3980, v3_sort_rows=8192)
+    for geometry in (engine_v4._dev_geometry, engine_v5._v5_geometry):
+        with pytest.raises(ValueError, match="v3_rmax"):
+            geometry(1 << 20, 1, wide)
+    with pytest.raises(ValueError, match="lsb_digit_bits"):
+        engine_lsb._geometry(1 << 20, 11, 4096)
+    with pytest.raises(ValueError, match="lsb_digit_bits"):
+        sort(torch.zeros(1 << 15, dtype=torch.int32), config=SortConfig(
+            engine="lsb", lsb_digit_bits=11, v3_sort_rows=4096,
+            min_engine_n=1))
+    x = np.random.default_rng(16).integers(0, 2**32, 70_000,
+                                           dtype=np.uint32)
+    for cfg in (dict(engine="v4", v3_rmax=2500, v3_sort_rows=2560),
+                dict(engine="lsb", lsb_digit_bits=10, v3_sort_rows=2048)):
+        res = sort(torch.from_numpy(x),
+                   config=SortConfig(min_engine_n=1, **cfg))
+        np.testing.assert_array_equal(res.keys.numpy(), np.sort(x))
