@@ -87,10 +87,11 @@ function, that call's time on the same inputs, its result required
 equal to the kernel's (the library time; the port never calls it):
 ``index_select`` for ``splice_runs``, ``block_permute`` (W's blocks, on
 the pre-launch copy), ``distribute`` and ``compact`` (gather indices
-built outside the timed call); ``torch.sort`` for keys-only
-``tile_sort`` launches (by row of tiles), keys-only ``ragged_sort``
-launches and the 1- and 2-plane ``terminal_sort_write`` and
-``terminal_write`` launches (the buckets gathered, outside the timed
+built outside the timed call); ``torch.sort`` for ``tile_sort``
+launches (by row of tiles, pairs as order-preserving int64 words as
+below), keys-only ``ragged_sort`` launches and the 1- and 2-plane
+``terminal_sort_write`` and ``terminal_write`` launches (the buckets
+gathered, outside the timed
 call, into rows of class_rows*128 or cap_rows*128 with SENT after each
 bucket's pad, two planes packed into order-preserving int64 words
 (key << 32) | (val + 2^31), then sorted by row; summed by plane count
@@ -109,9 +110,10 @@ covers only some launches, the JSON record gives their count
 (``library_calls``) and the kernel's time on them
 (``library_kernel_ms``) beside ``library_ms``.  ``hist_level``,
 ``hist_level.digit``, ``route_level`` (every mode), ``compact``,
-``block_permute``, ``terminal_write`` and
-``terminal_sort_write`` also report their launch alone (CUDA events
-around the C launcher, without the wrapper's host work, uploads and
+``block_permute``, ``terminal_write``, ``terminal_sort_write``,
+``seqroute_level`` and ``tile_sort`` also report their launch alone
+(CUDA events around the C launcher, without the wrapper's host work,
+uploads and
 syncs) as ``launch_ms``, per call in the log and summed in the JSON
 record; the log gives each terminal launch's path and cluster size
 (``kernels_v4.terminal_path``) and its resident clusters.  Then:
@@ -256,7 +258,8 @@ KERNELS = {
 # wrapper's host work and uploads outside) is timed beside the wrapper
 LAUNCH_TIMED = ("hist_level", "hist_level.digit", "route_level",
                 "route_level.digit", "route_level.accumulate", "compact",
-                "block_permute", "terminal_write", "terminal_sort_write")
+                "block_permute", "terminal_write", "terminal_sort_write",
+                "seqroute_level", "tile_sort")
 LANES = 128
 BLK = 256 * LANES                  # v5's exchange block, in elements
 # the wrapper functions behind the KERNELS entries
@@ -1035,20 +1038,28 @@ def library_terminal_v3(m, a, out, _):
 
 
 def library_tile_sort(m, a, out, before):
-    """Keys-only launches: ``torch.sort(keys.view(ntiles, -1), dim=1)`` of
-    the pre-launch tiles, their slack masked to SENT first (not timed);
-    its values must equal the kernel's tiles.  Pairs: no one call sorts
-    by (key, val), so None."""
-    if a["vals"] is not None:
-        return None
+    """``torch.sort(x, dim=1)`` by row of the pre-launch tiles, their
+    slack masked to SENT first (not timed): the keys for keys-only
+    launches; for pairs, int64 words (key << 32) | (val + 2^31), whose
+    signed order is the (key, val) order (as ``_bucket_rows`` packs
+    them).  Its values (unpacked outside the timed call) must equal the
+    kernel's tiles."""
     te = a["tile_rows"] * LANES
     k = before["keys"].view(-1, te)
     live = torch.arange(te, device=k.device)[None, :] \
         < a["data_elems"].long()[:, None]
-    k = torch.where(live, k, m.kv4.SENT)
-    lib, t = _plain(torch.sort, k, 1)
-    assert torch.equal(lib.values, out[0].view(-1, te)), \
-        "tile torch.sort differs"
+    mat = torch.where(live, k, m.kv4.SENT)
+    if a["vals"] is not None:
+        v = torch.where(live, before["vals"].view(-1, te), m.kv4.SENT)
+        mat = (mat.long() << 32) | (v.long() - BIAS)
+        del v
+    del live
+    lib, t = _plain(torch.sort, mat, 1)
+    del mat
+    planes = 1 if a["vals"] is None else 2
+    for v, o in zip(_sorted_planes(lib.values, planes, False),
+                    _pair_planes(out)):
+        assert torch.equal(v, o.view(-1, te)), "tile torch.sort differs"
     return t
 
 

@@ -1,6 +1,6 @@
-// The bitonic compare-exchange network shared by the terminal sort of
-// kernels_v4.cu and the v1 sorts of pallas_kernels.cu, and the plane
-// layout all kernels use.
+// The bitonic compare-exchange network shared by the terminal sort's
+// global path in kernels_v4.cu and the global merge steps of the v1 sorts
+// in pallas_kernels.cu, and the plane layout all kernels use.
 //
 // Keys are int32 in the sign-biased encoding (biased = raw ^ 0x80000000,
 // so signed order = unsigned order of the raw words); SENT = biased +inf.

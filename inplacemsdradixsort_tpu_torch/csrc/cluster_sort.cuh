@@ -540,12 +540,12 @@ __device__ void cs_network(const CsView<NP>& v, cg::cluster_group& cl,
   barrier(was_remote);
 }
 
-// Launch a cluster kernel over `grid` CTAs in clusters of `ctas` with
-// `shm` bytes of dynamic shared memory each (clusters above 8 CTAs are
-// allowed as non-portable).
+// Launch a cluster kernel over `grid` CTAs of `threads` threads in
+// clusters of `ctas` with `shm` bytes of dynamic shared memory each
+// (clusters above 8 CTAs are allowed as non-portable).
 template <class Kernel, class... Args>
-cudaError_t cs_launch(Kernel kernel, long long grid, int ctas, size_t shm,
-                      cudaStream_t st, Args... args) {
+cudaError_t cs_launch_n(Kernel kernel, long long grid, int ctas, int threads,
+                        size_t shm, cudaStream_t st, Args... args) {
   if (grid > INT_MAX || ctas < 1 || ctas > CS_MAX_CTAS)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -558,7 +558,7 @@ cudaError_t cs_launch(Kernel kernel, long long grid, int ctas, size_t shm,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
-  cfg.blockDim = dim3(CS_THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = shm;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -569,6 +569,13 @@ cudaError_t cs_launch(Kernel kernel, long long grid, int ctas, size_t shm,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The same with CS_THREADS threads a CTA, the network's block.
+template <class Kernel, class... Args>
+cudaError_t cs_launch(Kernel kernel, long long grid, int ctas, size_t shm,
+                      cudaStream_t st, Args... args) {
+  return cs_launch_n(kernel, grid, ctas, CS_THREADS, shm, st, args...);
 }
 
 // How many clusters of `ctas` CTAs with `shm` bytes each can be resident

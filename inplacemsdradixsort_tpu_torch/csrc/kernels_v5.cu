@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "range_lut.cuh"
+
 namespace {
 
 constexpr int LANES = 128;
@@ -31,8 +33,13 @@ constexpr long long BLK = 1LL << BLK_SHIFT;
 constexpr int MAX_PLANES = 4;
 constexpr int COPY_THREADS = 256;    // stage / flush / drain blocks
 constexpr int COPY_PARTS = 8;        // flush / drain blocks per range
+constexpr int STAGE_U = 4;           // vectors a plane a staging step
 constexpr int ROUTE_THREADS = 512;
-constexpr int ROUTE_CHUNK = 16384;   // tile elements per route block
+constexpr int ROUTE_WARPS = ROUTE_THREADS / 32;
+constexpr int ROUTE_E = 16;          // elements a thread holds of a chunk
+constexpr int ROUTE_CHUNK = ROUTE_THREADS * ROUTE_E;  // 8192 a route block
+constexpr size_t SMEM_MAX = 227 * 1024;  // shared memory a block may take
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int PERMUTE_THREADS = 256;
 // blocks per chunk: each thread of them owns one int4 of every plane
 constexpr int PERMUTE_SPLIT = (int)(BLK / 4 / PERMUTE_THREADS);
@@ -58,18 +65,6 @@ Planes<NP> planes_at(int32_t* base, long long stride) {
   return v;
 }
 
-// First d in [0, rmax) with k <= b[d] (inclusive upper bounds); rmax when
-// k exceeds every bound.
-__device__ __forceinline__ int find_range(const int32_t* b, int rmax,
-                                          int32_t k) {
-  int lo = 0, hi = rmax;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (k <= b[mid]) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
 // Live elements of data tile t: meta[4t:4t+4] = (src_row, nelems, ., .),
 // clamped to the tile and to W.
 __device__ __forceinline__ long long tile_live(const int32_t* meta, int t,
@@ -82,7 +77,8 @@ __device__ __forceinline__ long long tile_live(const int32_t* meta, int t,
 
 // ----------------------------------------------------- seqroute_level
 // Per window of tiles [t0, tend), in stream order:
-// 1. stage_kernel copies the window's live elements out of W;
+// 1. stage_kernel copies the window's live elements out of W (and zeroes
+//    the window's run cursors);
 // 2. flush_kernel writes, for every range whose open block (the one its
 //    stream reached before the window) completes inside the window, the
 //    part of that block held in the accumulator to the block's slot;
@@ -98,11 +94,21 @@ __device__ __forceinline__ long long tile_live(const int32_t* meta, int t,
 // completes no more blocks than it holds elements.  After the last
 // window drain_kernel pads every open block into its drain slot.
 
+// One block per ROUTE_CHUNK elements of a window tile: the chunk goes to
+// the staging buffer and, for the tile's first chunk, the tile's run
+// cursors are zeroed.  Every load of a step (STAGE_U vectors of every
+// plane) is issued before its first store.
 template <int NP>
 __global__ void __launch_bounds__(COPY_THREADS) stage_kernel(
     Planes<NP> w, long long w_len, const int32_t* __restrict__ meta, int t0,
-    int pitch, Planes<NP> stage, int cpt) {
+    int pitch, Planes<NP> stage, int cpt, int* __restrict__ cursor,
+    int rmax) {
+  constexpr int U = STAGE_U;
   const int lt = blockIdx.x / cpt, part = blockIdx.x % cpt;
+  if (part == 0) {
+    for (int d = threadIdx.x; d < rmax; d += blockDim.x)
+      cursor[(long long)lt * rmax + d] = 0;
+  }
   const long long te = (long long)pitch * LANES;
   const long long nel = tile_live(meta, t0 + lt, te, w_len);
   const long long lo = (long long)part * ROUTE_CHUNK;
@@ -110,13 +116,30 @@ __global__ void __launch_bounds__(COPY_THREADS) stage_kernel(
   if (lo >= hi) return;
   const long long src = (long long)meta[4 * (t0 + lt)] * LANES + lo;
   const long long dst = lt * te + lo;
-  const long long nv = (hi - lo) / 4;
+  const int nv = (int)((hi - lo) / 4);
+  constexpr int nt = COPY_THREADS;
+  for (int i0 = threadIdx.x; i0 < nv; i0 += U * nt) {
+    int4 v[NP][U];
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * nt;
+        if (i < nv) v[q][u] = ((const int4*)(w.p[q] + src))[i];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * nt;
+        if (i < nv) ((int4*)(stage.p[q] + dst))[i] = v[q][u];
+      }
+    }
+  }
 #pragma unroll
   for (int q = 0; q < NP; ++q) {
-    const int4* s4 = (const int4*)(w.p[q] + src);
-    int4* d4 = (int4*)(stage.p[q] + dst);
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x) d4[i] = s4[i];
-    for (long long i = nv * 4 + threadIdx.x; i < hi - lo; i += blockDim.x)
+    for (long long i = nv * 4LL + threadIdx.x; i < hi - lo; i += nt)
       stage.p[q][dst + i] = w.p[q][src + i];
   }
 }
@@ -141,78 +164,162 @@ __global__ void __launch_bounds__(COPY_THREADS) flush_kernel(
   }
 }
 
-// One block per ROUTE_CHUNK elements of a tile.  Pass 1 counts the
-// chunk's elements per range in shared memory; one global atomicAdd per
-// (chunk, range) on the tile's cursor reserves the chunk's share of the
-// tile's run; pass 2 claims each element's place in that share with a
-// shared-memory atomic (order inside a run is therefore not defined) and
-// stores every plane at the exact 64-bit address.  A claim past the
-// run's count (a histogram that does not match) is dropped.
+// One block per ROUTE_CHUNK elements of a staged tile, chunk-ranked as the
+// range route of kernels_v4.cu.  Warp v owns the span [v * 32 * ROUTE_E,
+// (v + 1) * 32 * ROUTE_E) of the chunk and its lanes take it row by row,
+// so the loads are coalesced.  Each key is classified once, by the lookup
+// table of range_lut.cuh over the ranges' bounds in shared memory, and
+// takes the next count of its range in its warp's count table (one
+// shared atomicAdd; a warp row whose lanes share a range takes 32 at
+// once).  One pass over (range, warp) turns the counts into offsets
+// inside each range's segment of the chunk; warp 0 scans the segments'
+// starts and claims each segment's share of its (tile, range) run with
+// one global atomicAdd on the run's cursor (the order inside a run is
+// therefore not defined).  The chunk then goes, plane by plane, into
+// shared memory in range order, and consecutive threads store
+// consecutive elements of a segment at consecutive stream positions: a
+// segment's stream positions cross at most one block boundary, so its
+// stores are runs of whole sectors into at most two places, the W slot
+// of a block that completes by the window's end or the range's
+// accumulator.  A claim past the run's count (a histogram that does not
+// match) is dropped; keys above every bound are not stored.  `rows`
+// count tables: one a warp, or one that the warps share where rmax is
+// too wide for those (route_smem).
 template <int NP>
-__global__ void __launch_bounds__(ROUTE_THREADS) route_kernel(
+__global__ void __launch_bounds__(ROUTE_THREADS, 2) route_kernel(
     Planes<NP> stage, long long w_len, const int32_t* __restrict__ meta,
     const int32_t* __restrict__ cnt_tbl, const int32_t* __restrict__ base_tbl,
     const int32_t* __restrict__ bounds, const long long* __restrict__ boff,
     const long long* __restrict__ bslot, Planes<NP> acc, Planes<NP> w,
     int* __restrict__ cursor, int t0, int tend, int pitch, int rmax, int cpt,
-    int32_t xor_in) {
+    int rows, int32_t xor_in) {
   extern __shared__ long long sm64[];
-  long long* sbase = sm64;                 // stream offset of the tile's run
-  long long* send = sbase + rmax;          // stream length at window end
-  long long* sboff = send + rmax;          // first block entry of the range
-  int32_t* sb = (int32_t*)(sboff + rmax);  // bounds
-  int* lcnt = sb + rmax;                   // chunk counts, then cursors
-  int* gb = lcnt + rmax;                   // the chunk's share of the run
-  int* scnt = gb + rmax;                   // the run's count
+  long long* obase = sm64;                 // rmax: stream position - slot
+  long long* send = obase + rmax;          // rmax: stream length at the end
+  int32_t* sb = (int32_t*)(send + rmax);   // rmax bounds
+  int* slim = sb + rmax;                   // rmax: slots past it dropped
+  int* dstart = slim + rmax;               // rmax segment lengths, starts
+  int* wcnt = dstart + rmax;               // [rows][range] counts, offsets
+  int32_t* chunk = wcnt + rows * rmax;     // ROUTE_CHUNK words, one plane
+  uint16_t* sdig = (uint16_t*)(chunk + ROUTE_CHUNK);  // their ranges
+  int* nstaged = (int*)(sdig + ROUTE_CHUNK);
+  uint16_t* lut = (uint16_t*)(nstaged + 1);  // LUT_CELLS + 1
   const int lt = blockIdx.x / cpt, part = blockIdx.x % cpt;
   const int t = t0 + lt;
   const long long te = (long long)pitch * LANES;
   const long long nel = tile_live(meta, t, te, w_len);
   const long long lo = (long long)part * ROUTE_CHUNK;
-  const long long hi = min(lo + ROUTE_CHUNK, nel);
-  if (lo >= hi) return;
+  if (lo >= nel) return;
   const long long row = (long long)t * rmax;
   for (int d = threadIdx.x; d < rmax; d += blockDim.x) {
     sb[d] = bounds[d];
-    lcnt[d] = 0;
-    sbase[d] = base_tbl[row + d];
     send[d] = base_tbl[(long long)tend * rmax + d];
-    sboff[d] = boff[d];
-    scnt[d] = cnt_tbl[row + d];
   }
+  for (int q = threadIdx.x; q < rows * rmax; q += blockDim.x) wcnt[q] = 0;
   __syncthreads();
-  const int32_t* in0 = stage.p[0] + lt * te;
-  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const int d = find_range(sb, rmax, in0[i] ^ xor_in);
-    if (d < rmax) atomicAdd(&lcnt[d], 1);
-  }
+  build_lut(lut, sb, rmax);
   __syncthreads();
-  for (int d = threadIdx.x; d < rmax; d += blockDim.x) {
-    const int c = lcnt[d];
-    gb[d] = c ? atomicAdd(&cursor[(long long)lt * rmax + d], c) : 0;
-    lcnt[d] = 0;
-  }
-  __syncthreads();
-  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const int32_t k = in0[i] ^ xor_in;
-    const int d = find_range(sb, rmax, k);
-    if (d >= rmax) continue;
-    const int j = gb[d] + atomicAdd(&lcnt[d], 1);
-    if (j >= scnt[d]) continue;
-    const long long s = sbase[d] + j;
-    const long long b = s >> BLK_SHIFT, off = s & (BLK - 1);
-    Planes<NP> out;
-    long long o;
-    if (((b + 1) << BLK_SHIFT) <= send[d]) {
-      out = w;
-      o = (bslot[sboff[d] + b] << BLK_SHIFT) + off;
-    } else {
-      out = acc;
-      o = (((long long)d * 2 + (b & 1)) << BLK_SHIFT) + off;
-    }
-    out.p[0][o] = k;
+  const RangeLut rl = range_lut(lut, sb, rmax);
+  const int lane = threadIdx.x & 31, v = threadIdx.x >> 5;
+  int* wc = wcnt + (rows > 1 ? v : 0) * rmax;
+  const long long span = lo + (long long)v * 32 * ROUTE_E + lane;
+  const long long sbase = lt * te;         // the tile's first staged word
+  // per element one register: its key, then (range + 1) << 16 | its slot
+  // (the rank in the warp, then the slot in the chunk), 0 where nothing
+  // is stored
+  int ds[ROUTE_E];
 #pragma unroll
-    for (int q = 1; q < NP; ++q) out.p[q][o] = stage.p[q][lt * te + i] ^ xor_in;
+  for (int j = 0; j < ROUTE_E; ++j) {
+    const long long i = span + 32 * j;
+    ds[j] = i < nel ? stage.p[0][sbase + i] : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < ROUTE_E; ++j) {
+    const int g = range_of(rl, ds[j] ^ xor_in);
+    ds[j] = span + 32 * j < nel && g < rmax ? g : -1;
+  }
+#pragma unroll
+  for (int j = 0; j < ROUTE_E; ++j) {
+    const int d = ds[j];
+    const int d0 = __shfl_sync(FULL_MASK, d, 0);
+    int rank;
+    if (__all_sync(FULL_MASK, d == d0)) {
+      int b = 0;
+      if (lane == 0 && d0 >= 0) b = atomicAdd(&wc[d0], 32);
+      rank = __shfl_sync(FULL_MASK, b, 0) + lane;
+    } else {
+      rank = d >= 0 ? atomicAdd(&wc[d], 1) : 0;
+    }
+    ds[j] = d >= 0 ? ((d + 1) << 16) | rank : 0;
+  }
+  __syncthreads();
+  // each range's count over the tables, in warp order: offsets of the
+  // warps inside the range's segment, and the segment's length
+  for (int g = threadIdx.x; g < rmax; g += blockDim.x) {
+    int run = 0;
+    for (int r = 0; r < rows; ++r) {
+      const int c = wcnt[r * rmax + g];
+      wcnt[r * rmax + g] = run;
+      run += c;
+    }
+    dstart[g] = run;
+  }
+  __syncthreads();
+  if (v == 0) {
+    // the segments' starts: an exclusive scan of the lengths, each lane
+    // over a contiguous share of the ranges; each segment's place in its
+    // run from the run's cursor
+    const int per = (rmax + 31) / 32, g0 = min(lane * per, rmax),
+              g1 = min(g0 + per, rmax);
+    int sum = 0;
+    for (int g = g0; g < g1; ++g) sum += dstart[g];
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL_MASK, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int run = incl - sum;
+    for (int g = g0; g < g1; ++g) {
+      const int len = dstart[g];
+      const int at = len ? atomicAdd(&cursor[(long long)lt * rmax + g], len)
+                         : 0;
+      dstart[g] = run;
+      obase[g] = (long long)base_tbl[row + g] + at - run;
+      slim[g] = cnt_tbl[row + g] - at + run;
+      run += len;
+    }
+    if (lane == 31) *nstaged = incl;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < ROUTE_E; ++j) {
+    const int d = (ds[j] >> 16) - 1;
+    if (d >= 0) ds[j] += dstart[d] + wc[d];
+  }
+  const int ns = *nstaged;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+#pragma unroll
+    for (int j = 0; j < ROUTE_E; ++j) {
+      if (!ds[j]) continue;
+      const int at = ds[j] & 0xFFFF;
+      chunk[at] = stage.p[q][sbase + span + 32 * j] ^ xor_in;
+      if (q == 0) sdig[at] = (uint16_t)((ds[j] >> 16) - 1);
+    }
+    __syncthreads();
+    for (int s = threadIdx.x; s < ns; s += blockDim.x) {
+      const int d = sdig[s];
+      if (s >= slim[d]) continue;
+      const long long pos = obase[d] + s;
+      const long long b = pos >> BLK_SHIFT, off = pos & (BLK - 1);
+      if (((b + 1) << BLK_SHIFT) <= send[d])
+        w.p[q][(bslot[boff[d] + b] << BLK_SHIFT) + off] = chunk[s];
+      else
+        acc.p[q][(((long long)d * 2 + (b & 1)) << BLK_SHIFT) + off] =
+            chunk[s];
+    }
+    __syncthreads();
   }
 }
 
@@ -238,6 +345,14 @@ __global__ void __launch_bounds__(COPY_THREADS) drain_kernel(
   }
 }
 
+// route_kernel's shared memory at rmax ranges and `rows` count tables, in
+// its layout: two int64 and three int32 tables a range, the count
+// tables, the chunk's words and ranges, one int and the lookup table.
+size_t route_smem(int rmax, int rows) {
+  return (size_t)rmax * (28 + 4 * rows) + 6 * ROUTE_CHUNK + 4 +
+         2 * (LUT_CELLS + 1);
+}
+
 template <int NP>
 int launch_seqroute(void* const* wp, long long w_len, const int32_t* meta,
                     const int32_t* cnt, const int32_t* base,
@@ -245,6 +360,16 @@ int launch_seqroute(void* const* wp, long long w_len, const int32_t* meta,
                     const long long* bslot, int32_t* stage, int32_t* acc,
                     int* cursor, int ntiles, int pitch, int rmax, int wt,
                     int32_t xor_in, cudaStream_t st) {
+  if (rmax < 1 || rmax >= (1 << 15) || wt < 1)
+    return (int)cudaErrorInvalidValue;
+  const int rows =
+      route_smem(rmax, ROUTE_WARPS) <= SMEM_MAX ? ROUTE_WARPS : 1;
+  const size_t shm = route_smem(rmax, rows);
+  if (shm > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      route_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shm);
+  if (err != cudaSuccess) return (int)err;
   const int ndata = ntiles - 1;
   const long long te = (long long)pitch * LANES;
   const int cpt = (int)((te + ROUTE_CHUNK - 1) / ROUTE_CHUNK);
@@ -253,20 +378,16 @@ int launch_seqroute(void* const* wp, long long w_len, const int32_t* meta,
   const Planes<NP> A = planes_at<NP>(acc, (long long)rmax * 2 * BLK);
   // the ranges' inclusive upper bounds are the drain tile's pad values
   const int32_t* bounds = padv + (long long)ndata * rmax;
-  const size_t shm = (size_t)rmax * (3 * sizeof(long long) + 4 * sizeof(int));
   for (int t0 = 0; t0 < ndata; t0 += wt) {
     const int tend = min(t0 + wt, ndata);
     const int nt = tend - t0;
-    stage_kernel<NP><<<nt * cpt, COPY_THREADS, 0, st>>>(w, w_len, meta, t0,
-                                                         pitch, S, cpt);
+    stage_kernel<NP><<<nt * cpt, COPY_THREADS, 0, st>>>(
+        w, w_len, meta, t0, pitch, S, cpt, cursor, rmax);
     flush_kernel<NP><<<rmax * COPY_PARTS, COPY_THREADS, 0, st>>>(
         w, A, base, boff, bslot, t0, tend, rmax);
-    cudaError_t err = cudaMemsetAsync(cursor, 0,
-                                      (size_t)nt * rmax * sizeof(int), st);
-    if (err != cudaSuccess) return (int)err;
     route_kernel<NP><<<nt * cpt, ROUTE_THREADS, shm, st>>>(
         S, w_len, meta, cnt, base, bounds, boff, bslot, A, w, cursor, t0,
-        tend, pitch, rmax, cpt, xor_in);
+        tend, pitch, rmax, cpt, rows, xor_in);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -24,10 +24,9 @@
 
 namespace {
 
-constexpr int SORT_THREADS = 1024;   // blocks that sort a shared tile
 constexpr int STEP_THREADS = 256;    // one global network step
 constexpr int STEP_BLOCKS = 65536;   // grid cap of a global step
-constexpr int COPY_THREADS = 256;    // count
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // The regions one sort launch orders in place: region b holds m tuples
 // from element base(b) = start_rows[b] * 128 (or b * m when start_rows is
@@ -62,48 +61,10 @@ __device__ __forceinline__ Planes<NP> shifted(const Planes<NP>& a,
   return v;
 }
 
-// One block per (region, tile of tsz tuples): load the tile into shared
-// memory, then either sort it (the first pass: tuples at or past the
-// region's live count load as SENT) or run a merge's steps shorter than
-// the tile on it (merge != 0: the region is already masked), and store
-// the part of the tile below m.
-template <int NP>
-__global__ void __launch_bounds__(SORT_THREADS) tile_pass_kernel(
-    Planes<NP> a, Regions r, int tsz, int ntile, int nlex, int merge) {
-  extern __shared__ int32_t smem[];
-  const long long b = blockIdx.x / ntile;
-  const int c = blockIdx.x % ntile;
-  long long base;
-  int live;
-  if (!region_of(r, b, &base, &live)) return;
-  if (merge) live = (int)r.m;
-  const Planes<NP> g = shifted<NP>(a, base);
-  Planes<NP> s;
-#pragma unroll
-  for (int q = 0; q < NP; ++q) s.p[q] = smem + q * tsz;
-  for (int i = threadIdx.x; i < tsz; i += blockDim.x) {
-    const int e = c * tsz + i;
-#pragma unroll
-    for (int q = 0; q < NP; ++q) s.p[q][i] = e < live ? g.p[q][e] : SENT;
-  }
-  __syncthreads();
-  if (merge)
-    smem_half_steps<NP>(s, tsz, tsz >> 1, nlex);
-  else
-    smem_sort<NP>(s, tsz, nlex);
-  for (int i = threadIdx.x; i < tsz; i += blockDim.x) {
-    const int e = c * tsz + i;
-    if (e < r.m) {
-#pragma unroll
-      for (int q = 0; q < NP; ++q) g.p[q][e] = s.p[q][i];
-    }
-  }
-}
-
-// One step of the network with partner distance h >= the shared tile,
-// over every pair of every region (2^lhalf pairs a region): `flip` pairs
-// i with i ^ (2h - 1), otherwise with i + h.  Pairs reaching past m are
-// no-ops.
+// One step of the network with partner distance h of a run or more (the
+// runs of ragged_sort and tile_sort), over every pair of every region
+// (2^lhalf pairs a region): `flip` pairs i with i ^ (2h - 1), otherwise
+// with i + h.  Pairs reaching past m are no-ops.
 template <int NP>
 __global__ void __launch_bounds__(STEP_THREADS) global_step_kernel(
     Planes<NP> a, Regions r, long long nb, int lhalf, int h, int flip,
@@ -122,58 +83,6 @@ __global__ void __launch_bounds__(STEP_THREADS) global_step_kernel(
   }
 }
 
-// Sort every region of r in place: sorted shared tiles first, then for
-// every merge size k above the tile the steps with a partner distance of
-// a tile or more as global launches and the shorter ones per tile in
-// shared memory.  Any number of blocks works on one region.
-template <int NP>
-int sort_regions(void* const* planes, const Regions& r, long long nb,
-                 int nlex, cudaStream_t st) {
-  if (nb <= 0 || r.m <= 0) return (int)cudaGetLastError();
-  if (r.m > (1LL << 30)) return (int)cudaErrorInvalidValue;
-  const Planes<NP> a = planes_of<NP>(planes);
-  int N = 1, lN = 0;
-  while (N < r.m) {
-    N <<= 1;
-    ++lN;
-  }
-  const int tsz = std::min(N, smem_tile<NP>());
-  const long long ntile = (r.m + tsz - 1) / tsz;
-  const long long blocks = nb * ntile;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const size_t shm = (size_t)NP * tsz * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_pass_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shm);
-  if (err != cudaSuccess) return (int)err;
-  tile_pass_kernel<NP><<<(int)blocks, SORT_THREADS, shm, st>>>(
-      a, r, tsz, (int)ntile, nlex, 0);
-  const int lhalf = lN - 1;
-  const long long pairs = nb << std::max(lhalf, 0);
-  const int sgrid = (int)std::min((pairs + STEP_THREADS - 1) / STEP_THREADS,
-                                  (long long)STEP_BLOCKS);
-  for (int k = 2 * tsz; k <= N; k <<= 1) {
-    global_step_kernel<NP><<<sgrid, STEP_THREADS, 0, st>>>(
-        a, r, nb, lhalf, k >> 1, 1, nlex);
-    for (int j = k >> 2; j >= tsz; j >>= 1)
-      global_step_kernel<NP><<<sgrid, STEP_THREADS, 0, st>>>(
-          a, r, nb, lhalf, j, 0, nlex);
-    tile_pass_kernel<NP><<<(int)blocks, SORT_THREADS, shm, st>>>(
-        a, r, tsz, (int)ntile, nlex, 1);
-  }
-  return (int)cudaGetLastError();
-}
-
-int sort_planes(void* keys, void* vals, const Regions& r, long long nb,
-                int nplanes, cudaStream_t st) {
-  void* const planes[2] = {keys, vals};
-  switch (nplanes) {
-    case 1: return sort_regions<1>(planes, r, nb, 0, st);
-    case 2: return sort_regions<2>(planes, r, nb, 1, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 // ---------------------------------------------------------- ragged_sort
 // One thread-block cluster per (live bucket, run): the run's tuples stay
 // in the shared memory of the cluster's C CTAs (128 KiB each: 2^15 keys
@@ -188,6 +97,7 @@ int sort_planes(void* keys, void* vals, const Regions& r, long long nb,
 // store it back in place, every tuple of the run below m.
 struct CsArgs {
   const int32_t* start_rows;   // bucket b starts at row start_rows[b]
+                               // (NULL: at element b * m)
   const int32_t* live;         // its pad: tuples at or past it are SENT
   long long m;                 // tuples of a bucket (class_rows * 128)
   long long len;               // elements of the arena
@@ -212,7 +122,8 @@ __global__ void __launch_bounds__(CS_THREADS, 1)
   const long long b = cid / k.nruns;
   const long long r0 = (cid % k.nruns) << k.lr;   // run's first tuple
   const long long pad = k.live[b];
-  const long long base = (long long)k.start_rows[b] * LANES;
+  const long long base =
+      k.start_rows ? (long long)k.start_rows[b] * LANES : b * k.m;
   // the same for every CTA of the cluster: all exit or none
   if (pad <= 0 || base < 0 || base + k.m > k.len || r0 >= k.m) return;
   cg::cluster_group cl = cg::this_cluster();
@@ -300,13 +211,34 @@ cudaError_t cluster_sort(const Planes<NP>& a, const Regions& r, long long nb,
                    cs_smem_bytes<NP>(sb), st, a, k);
 }
 
+// Join the ascending runs of 2^lr tuples of every region of r, N = 2^lN
+// >= m tuples a region, by the network's all-ascending merges (the first
+// step of merge size k pairs i with i ^ (k - 1), the others i with i + j,
+// the smaller tuple to the lower index, so virtual SENT tuples past m stay
+// in place): global_step_kernel for distances of a run or more, a cluster
+// launch in merge mode for the shorter ones.
+template <int NP>
+int merge_runs(const Planes<NP>& a, const Regions& r, long long nb, int lr,
+               int lN, cudaStream_t st) {
+  const long long pairs = nb << (lN - 1);
+  const int sgrid = (int)std::min((pairs + STEP_THREADS - 1) / STEP_THREADS,
+                                  (long long)STEP_BLOCKS);
+  for (long long k = 2LL << lr; k <= (1LL << lN); k <<= 1) {
+    global_step_kernel<NP><<<sgrid, STEP_THREADS, 0, st>>>(
+        a, r, nb, lN - 1, (int)(k >> 1), 1, NP - 1);
+    for (long long j = k >> 2; j >= (1LL << lr); j >>= 1)
+      global_step_kernel<NP><<<sgrid, STEP_THREADS, 0, st>>>(
+          a, r, nb, lN - 1, (int)j, 0, NP - 1);
+    const cudaError_t err =
+        cluster_sort<NP>(a, r, nb, lr, 1 << (lN - lr), 1, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 // Sort every live bucket of r.  Up to 8 CTAs of tuples a bucket is one
 // cluster launch.  Larger buckets (N = 2^lN >= m tuples) are sorted as
-// ascending runs of 2^lr, then joined by the network's all-ascending
-// merges (the first step of merge size k pairs i with i ^ (k - 1), the
-// others i with i + j, the smaller tuple to the lower index, so virtual
-// SENT tuples past m stay in place): global_step_kernel for distances of
-// a run or more, a cluster launch in merge mode for the shorter ones.
+// ascending runs of 2^lr, then joined by merge_runs.
 template <int NP>
 int ragged_sort_regions(void* const* planes, const Regions& r, long long nb,
                         cudaStream_t st) {
@@ -317,40 +249,398 @@ int ragged_sort_regions(void* const* planes, const Regions& r, long long nb,
   while ((1LL << lN) < r.m) ++lN;
   lN = std::max(lN, cs_w<NP>() + 2);
   const int lr = std::min(lN, cs_cta_log<NP>() + 3);
-  cudaError_t err = cluster_sort<NP>(a, r, nb, lr, 1 << (lN - lr), 0, st);
+  const cudaError_t err =
+      cluster_sort<NP>(a, r, nb, lr, 1 << (lN - lr), 0, st);
   if (err != cudaSuccess) return (int)err;
-  const long long pairs = nb << (lN - 1);
-  const int sgrid = (int)std::min((pairs + STEP_THREADS - 1) / STEP_THREADS,
-                                  (long long)STEP_BLOCKS);
-  for (long long k = 2LL << lr; k <= (1LL << lN); k <<= 1) {
-    global_step_kernel<NP><<<sgrid, STEP_THREADS, 0, st>>>(
-        a, r, nb, lN - 1, (int)(k >> 1), 1, NP - 1);
-    for (long long j = k >> 2; j >= (1LL << lr); j >>= 1)
-      global_step_kernel<NP><<<sgrid, STEP_THREADS, 0, st>>>(
-          a, r, nb, lN - 1, (int)j, 0, NP - 1);
-    err = cluster_sort<NP>(a, r, nb, lr, 1 << (lN - lr), 1, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+  return merge_runs<NP>(a, r, nb, lr, lN, st);
 }
 
 // ------------------------------------------------------------ tile_sort
-// One thread per (tile, bound): the number of tuples of the sorted tile
-// whose key is <= the bound, by an upper-bound search.
-__global__ void __launch_bounds__(COPY_THREADS) count_kernel(
-    const int32_t* __restrict__ keys, long long tile_elems,
-    const int32_t* __restrict__ bounds, int32_t* __restrict__ cnt,
-    long long total, int r) {
-  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= total) return;
-  const int32_t* k = keys + (x / r) * tile_elems;
-  const int32_t bound = bounds[x];
-  long long lo = 0, hi = tile_elems;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (k[mid] <= bound) lo = mid + 1; else hi = mid;
+// One thread-block cluster of C = 1-8 CTAs per (tile, run) sorts the run
+// by a least-significant-digit radix sort over the bits that vary among
+// its live tuples, and counts the tile's bounds on the sorted run.  A CTA
+// holds 2^15 keys or 2^14 pairs (rs_cap_log), so the default 2^15-element
+// tile is one CTA keys-only and a cluster of two with pairs.  A run is
+// the whole tile up to 8 CTAs' tuples (2^18 keys, 2^17 pairs), else runs
+// of that size which merge_runs then joins.  CTA c holds the run's
+// positions [c * cap, (c + 1) * cap) in shared memory, a tuple's planes
+// side by side (a pair is one 8-byte word, moved by one load and one
+// store), from one read of device memory to one write:
+// - load: the live tuples (those below the tile's data count; the rest
+//   is SENT and not read), with the OR of x ^ (the run's first tuple)
+//   over them, plane by plane, which the cluster's CTAs combine;
+// - passes: 8-bit digits of the raw word (biased ^ 2^31, whose unsigned
+//   order is the signed order of the biased word) from the lowest to
+//   the highest varying bit, first of the value plane, then of the key,
+//   so the run ends ordered by (key, val).  A pass reads each thread's
+//   rs_e tuples (warp v owns the span [v * 32 * rs_e, (v + 1) * 32 *
+//   rs_e) of its CTA's positions, row by row) and ranks them row by row
+//   in its warp's count table of the digit.  Every pass but the first is
+//   stable, ranked as the stable digit route of kernels_v4.cu does (each
+//   lane sets its bit in its warp's mask word of the digit, so the word
+//   is the row's lanes with that digit; the rank is the warp's running
+//   count of the digit plus the peers in lower lanes); the first, whose
+//   input order does not matter, takes one shared atomicAdd a tuple (32
+//   at once for a row whose lanes share the digit).  The (warp, digit)
+//   counts become offsets and the CTA's digit totals, and after a
+//   cluster barrier every CTA's totals place each digit's segment in the
+//   run, ordered by (digit, CTA, warp, rank): the old order among equal
+//   digits.  Every tuple then goes to the shared memory of the CTA that
+//   holds its new position (distributed shared memory), and a second
+//   cluster barrier ends the pass.  Live tuples stay at positions [0,
+//   live) of the run through every pass; SENT tuples are placed by
+//   position, never ranked, so no pass needs their bits;
+// - store: positions below live from shared memory, SENT after them up
+//   to the run's end, with 16-byte stores where the planes allow;
+// - count: each bound of the tile by an upper-bound search over the
+//   run's sorted live keys (through distributed shared memory), plus
+//   the SENT tuples when the bound is SENT; added into a zeroed table
+//   when the tile has several runs (a count is the same in any order).
+constexpr int RS_THREADS = 1024;
+constexpr int RS_WARPS = RS_THREADS / 32;
+constexpr int RS_TUPLES = 32;                     // words a thread ranks
+constexpr int RS_CLOG_MAX = 3;                    // 8 CTAs a cluster
+constexpr int RS_BITS = 8;                        // digit width
+constexpr int RS_DIGITS = 1 << RS_BITS;
+constexpr int RS_GROUPS = RS_THREADS / RS_DIGITS;  // threads a digit
+
+// tuples a thread ranks (32 keys or 16 pairs) and log2 tuples a CTA holds
+template <int NP>
+__host__ __device__ constexpr int rs_e() { return RS_TUPLES / NP; }
+template <int NP>
+__host__ __device__ constexpr int rs_cap_log() { return NP == 1 ? 15 : 14; }
+static_assert(RS_THREADS * rs_e<1>() == 1 << rs_cap_log<1>(), "keys");
+static_assert(RS_THREADS * rs_e<2>() == 1 << rs_cap_log<2>(), "pairs");
+
+// Bytes of tile_radix_kernel's dynamic shared memory: the tuples, the
+// (warp, digit) count and mask tables, the digit totals, bases and group
+// sums, the varying-bit masks and the warp sums of the digit scan.
+template <int NP>
+__host__ __device__ constexpr size_t rs_smem_bytes() {
+  return sizeof(int32_t) *
+         (((size_t)NP << rs_cap_log<NP>()) + 2 * RS_WARPS * RS_DIGITS +
+          (2 + RS_GROUPS) * RS_DIGITS + 4 + RS_WARPS);
+}
+
+struct RsArgs {
+  const int32_t* bounds;   // (ntiles, R) biased inclusive upper bounds
+  const int32_t* data;     // tile t's data elements; the rest is SENT
+  int32_t* cnt;            // (ntiles, R) counts
+  long long te;            // elements of a tile
+  int nruns;               // runs a tile
+  int clog;                // log2 CTAs a cluster
+  int R;
+  int accumulate;          // add each run's counts into a zeroed cnt
+};
+
+// The shared tables of one CTA of tile_radix_kernel.
+struct RsShared {
+  int32_t* buf;            // 2^rs_cap_log tuples, planes side by side
+  int* wcnt;               // [warp][digit] counts, then offsets
+  unsigned* wmask;         // [warp][digit] peer masks, zero between rows
+  int* ctot;               // [digit] the CTA's totals
+  int* dbase;              // [digit] the CTA's first position of a digit
+  int* gpart;              // [group][digit] counts of a group of warps
+  unsigned* vary;          // [plane] varying bits (4)
+  int* wsum;               // [warp] sums of the digit scan
+};
+
+// One pass over the digit (raw >> shift) & 255 of plane q, by the whole
+// cluster (stable unless it is the first); returns after its second
+// cluster barrier.
+template <int NP>
+__device__ __forceinline__ void rs_pass(const RsShared& sh,
+                                        cg::cluster_group& cl, int q,
+                                        int shift, bool stable, int nlive,
+                                        int c, int C) {
+  constexpr int E = rs_e<NP>();
+  constexpr int CAP_LOG = rs_cap_log<NP>();
+  constexpr int CAP = 1 << CAP_LOG;
+  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
+  const unsigned below = (1u << lane) - 1;
+  int* wc = sh.wcnt + wp * RS_DIGITS;
+  unsigned* wm = sh.wmask + wp * RS_DIGITS;
+  for (int i = lane; i < RS_DIGITS; i += 32) wc[i] = 0;
+  __syncwarp();
+  const int pw = wp * 32 * E + lane;             // row 0's position
+  const int live = nlive - (c << CAP_LOG) - pw;  // row j live: 32j < live
+  int32_t x[NP][E];
+  uint32_t rk[E / 2];                            // two 16-bit ranks a word
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    if constexpr (NP == 2) {
+      const int2 t = ((const int2*)sh.buf)[pw + 32 * j];
+      x[0][j] = t.x;
+      x[1][j] = t.y;
+    } else {
+      x[0][j] = sh.buf[pw + 32 * j];
+    }
   }
-  cnt[x] = (int32_t)lo;
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int32_t key = (NP == 1 || q == 0) ? x[0][j] : x[NP - 1][j];
+    const int d = 32 * j < live
+                      ? (int)((((uint32_t)key ^ 0x80000000u) >> shift) &
+                              (RS_DIGITS - 1))
+                      : -1;
+    uint32_t r;
+    if (stable) {
+      if (d >= 0) atomicOr(&wm[d], 1u << lane);
+      __syncwarp();
+      const unsigned peers = d >= 0 ? wm[d] : 0;
+      const int leader = __ffs(peers) - 1;
+      const bool lead = d >= 0 && lane == leader;
+      const int b = __shfl_sync(FULL_MASK, lead ? wc[d] : 0, leader & 31);
+      __syncwarp();
+      if (lead) {
+        wc[d] = b + __popc(peers);
+        wm[d] = 0;
+      }
+      __syncwarp();
+      r = (uint32_t)(b + __popc(peers & below));
+    } else {
+      const int d0 = __shfl_sync(FULL_MASK, d, 0);
+      if (__all_sync(FULL_MASK, d == d0)) {
+        int b = 0;
+        if (lane == 0 && d0 >= 0) b = atomicAdd(&wc[d0], 32);
+        r = (uint32_t)(__shfl_sync(FULL_MASK, b, 0) + lane);
+      } else {
+        r = d >= 0 ? (uint32_t)atomicAdd(&wc[d], 1) : 0;
+      }
+    }
+    if (j & 1) rk[j >> 1] |= r << 16; else rk[j >> 1] = r;
+  }
+  __syncthreads();
+  {
+    // the (warp, digit) counts in warp order: RS_GROUPS threads a digit,
+    // each over RS_WARPS / RS_GROUPS warps, give the warps' offsets inside
+    // the CTA's segment of the digit and the CTA's total
+    constexpr int WG = RS_WARPS / RS_GROUPS;
+    const int d = tid % RS_DIGITS, g = tid / RS_DIGITS;
+    int run = 0;
+#pragma unroll
+    for (int v = g * WG; v < (g + 1) * WG; ++v) {
+      const int n = sh.wcnt[v * RS_DIGITS + d];
+      sh.wcnt[v * RS_DIGITS + d] = run;
+      run += n;
+    }
+    sh.gpart[g * RS_DIGITS + d] = run;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int gg = 0; gg < RS_GROUPS; ++gg) {
+      const int n = sh.gpart[gg * RS_DIGITS + d];
+      before += gg < g ? n : 0;
+      total += n;
+    }
+    if (before) {
+#pragma unroll
+      for (int v = g * WG; v < (g + 1) * WG; ++v)
+        sh.wcnt[v * RS_DIGITS + d] += before;
+    }
+    if (g == 0) sh.ctot[d] = total;
+  }
+  cl.sync();
+  // the digit's segment in the run: the totals of lower digits over the
+  // cluster, then the digit's counts in lower CTAs
+  int tot = 0, bef = 0;
+  if (tid < RS_DIGITS) {
+    for (int cc = 0; cc < C; ++cc) {
+      const int n = cl.map_shared_rank(sh.ctot, cc)[tid];
+      tot += n;
+      if (cc < c) bef += n;
+    }
+  }
+  int incl = tot;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL_MASK, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (tid < RS_DIGITS && lane == 31) sh.wsum[wp] = incl;
+  __syncthreads();
+  if (tid < RS_DIGITS) {
+    int before = 0;
+    for (int v = 0; v < wp; ++v) before += sh.wsum[v];
+    sh.dbase[tid] = before + incl - tot + bef;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    if (32 * j >= live) continue;
+    const int32_t key = (NP == 1 || q == 0) ? x[0][j] : x[NP - 1][j];
+    const int d = (int)((((uint32_t)key ^ 0x80000000u) >> shift) &
+                        (RS_DIGITS - 1));
+    const int dest = sh.dbase[d] + wc[d] +
+                     (int)((rk[j >> 1] >> (16 * (j & 1))) & 0xFFFF);
+    int32_t* to = (C == 1 ? sh.buf
+                          : cl.map_shared_rank(sh.buf, dest >> CAP_LOG)) +
+                  (dest & (CAP - 1)) * NP;
+    if constexpr (NP == 2)
+      *(int2*)to = make_int2(x[0][j], x[1][j]);
+    else
+      *to = x[0][j];
+  }
+  cl.sync();
+}
+
+template <int NP>
+__global__ void __launch_bounds__(RS_THREADS, 1)
+    tile_radix_kernel(Planes<NP> a, RsArgs k) {
+  constexpr int CAP_LOG = rs_cap_log<NP>();
+  constexpr int CAP = 1 << CAP_LOG;
+  extern __shared__ __align__(16) int32_t rs_smem[];
+  RsShared sh;
+  sh.buf = rs_smem;
+  sh.wcnt = sh.buf + NP * CAP;
+  sh.wmask = (unsigned*)(sh.wcnt + RS_WARPS * RS_DIGITS);
+  sh.ctot = (int*)(sh.wmask + RS_WARPS * RS_DIGITS);
+  sh.dbase = sh.ctot + RS_DIGITS;
+  sh.gpart = sh.dbase + RS_DIGITS;
+  sh.vary = (unsigned*)(sh.gpart + RS_GROUPS * RS_DIGITS);
+  sh.wsum = (int*)(sh.vary + 4);
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = 1 << k.clog;
+  const int c = (int)(blockIdx.x & (C - 1));
+  const long long cid = blockIdx.x >> k.clog;         // (tile, run)
+  const long long t = cid / k.nruns;
+  const long long r0 = (cid % k.nruns) << (CAP_LOG + k.clog);
+  const int runlen = (int)min((long long)C << CAP_LOG, k.te - r0);
+  const int nlive =
+      (int)max(0LL, min((long long)k.data[t] - r0, (long long)runlen));
+  const long long tb = t * k.te + r0;                  // the run's first
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int p0 = c << CAP_LOG;                         // the CTA's first
+  for (int i = tid; i < RS_WARPS * RS_DIGITS; i += RS_THREADS)
+    sh.wmask[i] = 0;
+  if (tid < 4) sh.vary[tid] = 0;
+  __syncthreads();
+  int32_t ref[NP];
+  bool vec = true;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    ref[p] = nlive > 0 ? a.p[p][tb] : 0;
+    vec &= ((uintptr_t)(a.p[p] + tb) & 15) == 0;
+  }
+  const int lim = min(CAP, max(0, nlive - p0));       // live positions held
+  unsigned orv[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) orv[p] = 0;
+  for (int i = 4 * tid; i < lim; i += 4 * RS_THREADS) {
+    int32_t e[NP][4];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int32_t* g = a.p[p] + tb + p0 + i;
+      if (vec && i + 4 <= lim) {
+        const int4 v = *(const int4*)g;
+        e[p][0] = v.x; e[p][1] = v.y; e[p][2] = v.z; e[p][3] = v.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) e[p][u] = i + u < lim ? g[u] : ref[p];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) orv[p] |= (uint32_t)(e[p][u] ^ ref[p]);
+    }
+    int4* to = (int4*)(sh.buf + i * NP);
+    if constexpr (NP == 2) {
+      to[0] = make_int4(e[0][0], e[1][0], e[0][1], e[1][1]);
+      to[1] = make_int4(e[0][2], e[1][2], e[0][3], e[1][3]);
+    } else {
+      to[0] = make_int4(e[0][0], e[0][1], e[0][2], e[0][3]);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const unsigned m = __reduce_or_sync(FULL_MASK, orv[p]);
+    if (lane == 0 && m) atomicOr(&sh.vary[p], m);
+  }
+  cl.sync();
+  unsigned vm[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    vm[p] = 0;
+    for (int cc = 0; cc < C; ++cc)
+      vm[p] |= *cl.map_shared_rank(&sh.vary[p], cc);
+  }
+  bool first = true;
+  for (int q = NP - 1; q >= 0; --q) {
+    const unsigned m = q == 0 ? vm[0] : vm[NP - 1];
+    if (!m) continue;
+    const int lo = __ffs((int)m) - 1, hi = 31 - __clz((int)m);
+    for (int s = lo; s <= hi; s += RS_BITS) {
+      rs_pass<NP>(sh, cl, q, s, !first, nlive, c, C);
+      first = false;
+    }
+  }
+  // the sorted run: live tuples, then SENT to the run's end
+  const int hold = min(CAP, max(0, runlen - p0));
+  for (int i = 4 * tid; i < hold; i += 4 * RS_THREADS) {
+    int32_t t[4 * NP];
+    const int4* from = (const int4*)(sh.buf + i * NP);
+#pragma unroll
+    for (int h = 0; h < NP; ++h) {
+      const int4 v = from[h];
+      t[4 * h] = v.x; t[4 * h + 1] = v.y; t[4 * h + 2] = v.z;
+      t[4 * h + 3] = v.w;
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      int32_t e[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        e[u] = p0 + i + u < nlive ? t[u * NP + p] : SENT;
+      int32_t* g = a.p[p] + tb + p0 + i;
+      if (vec) {
+        *(int4*)g = make_int4(e[0], e[1], e[2], e[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) g[u] = e[u];
+      }
+    }
+  }
+  const long long row = t * k.R;
+  for (int d = c + C * tid; d < k.R; d += C * RS_THREADS) {
+    const int32_t bd = k.bounds[row + d];
+    int lo = 0, hi = nlive;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      const int32_t km = cl.map_shared_rank(
+          sh.buf, mid >> CAP_LOG)[(mid & (CAP - 1)) * NP];
+      if (km <= bd) lo = mid + 1; else hi = mid;
+    }
+    const int n = lo + (bd == SENT ? runlen - nlive : 0);
+    if (k.accumulate) atomicAdd(&k.cnt[row + d], n); else k.cnt[row + d] = n;
+  }
+  // no CTA leaves while another may read its shared memory
+  cl.sync();
+}
+
+// Sort every tile of te tuples in place and count its bounds: one cluster
+// launch of tile_radix_kernel, then, for tiles of several runs,
+// merge_runs.
+template <int NP>
+int tile_sort_planes(void* const* planes, const int32_t* bounds,
+                     const int32_t* data, int32_t* cnt, int ntiles,
+                     long long te, int R, cudaStream_t st) {
+  constexpr int CAP_LOG = rs_cap_log<NP>();
+  if (ntiles <= 0 || te <= 0) return (int)cudaGetLastError();
+  if (te > (1LL << 30) || te % LANES || R < 0)
+    return (int)cudaErrorInvalidValue;
+  const Planes<NP> a = planes_of<NP>(planes);
+  int clog = 0;
+  while ((1LL << (CAP_LOG + clog)) < te && clog < RS_CLOG_MAX) ++clog;
+  const long long run = 1LL << (CAP_LOG + clog);
+  const int nruns = (int)((te + run - 1) / run);
+  const RsArgs k{bounds, data, cnt, te, nruns, clog, R, nruns > 1};
+  const cudaError_t err = cs_launch_n(
+      tile_radix_kernel<NP>, ((long long)ntiles * nruns) << clog, 1 << clog,
+      RS_THREADS, rs_smem_bytes<NP>(), st, a, k);
+  if (err != cudaSuccess) return (int)err;
+  if (nruns == 1) return (int)cudaGetLastError();
+  int lN = 0;
+  while ((1LL << lN) < te) ++lN;
+  const Regions r{nullptr, data, te, ntiles * te, 0};
+  return merge_runs<NP>(a, r, ntiles, CAP_LOG + RS_CLOG_MAX, lN, st);
 }
 
 // ----------------------------------------------------------- distribute
@@ -634,29 +924,29 @@ __global__ void __launch_bounds__(COMPACT_THREADS) compact_kernel(
   }
 }
 
-long long blocks_for(long long threads) {
-  return (threads + COPY_THREADS - 1) / COPY_THREADS;
-}
-
 }  // namespace
 
 extern "C" {
 
-// nplanes is 1 (keys) or 2 (keys, vals); vals is NULL for 1.
+// nplanes is 1 (keys) or 2 (keys, vals); vals is NULL for 1.  cnt must
+// be zeroed when a tile has several runs (more than 2^18 keys or 2^17
+// pairs).
 int kv1_tile_sort(void* keys, void* vals, const void* bounds,
                   const void* data_elems, void* cnt, int ntiles,
                   long long tile_elems, int r, int nplanes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const Regions reg{nullptr, (const int32_t*)data_elems, tile_elems,
-                    ntiles * tile_elems, 0};
-  const int err = sort_planes(keys, vals, reg, ntiles, nplanes, st);
-  if (err != 0) return err;
-  const long long total = (long long)ntiles * r;
-  if (total > 0)
-    count_kernel<<<(int)blocks_for(total), COPY_THREADS, 0, st>>>(
-        (const int32_t*)keys, tile_elems, (const int32_t*)bounds,
-        (int32_t*)cnt, total, r);
-  return (int)cudaGetLastError();
+  void* const planes[2] = {keys, vals};
+  const int32_t* b = (const int32_t*)bounds;
+  const int32_t* d = (const int32_t*)data_elems;
+  switch (nplanes) {
+    case 1:
+      return tile_sort_planes<1>(planes, b, d, (int32_t*)cnt, ntiles,
+                                 tile_elems, r, st);
+    case 2:
+      return tile_sort_planes<2>(planes, b, d, (int32_t*)cnt, ntiles,
+                                 tile_elems, r, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int kv1_distribute(void* keys, void* vals, long long src_len,

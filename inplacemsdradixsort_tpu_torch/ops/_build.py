@@ -5,7 +5,8 @@ and the digit modes of the level kernels),
 partition level) and ``pallas_kernels.cu`` (the v1 kernels), which share
 ``bitonic.cuh``; ``cluster_sort.cuh``, the cluster-resident network of the
 v1 ``ragged_sort`` and the v4 terminal, is included by the first and the
-last.
+last; ``range_lut.cuh``, the range lookup table of the partition kernels,
+by ``kernels_v4.cu`` and ``kernels_v5.cu``.
 
 The library is built at first use on a CUDA tensor, never at import (the
 package imports on machines without ``nvcc``), by one ``nvcc -c`` per
@@ -34,7 +35,8 @@ CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{name}.cu"
                 for name in ("kernels_v4", "kernels_v5", "kernels_v3",
                              "pallas_kernels"))
-HEADERS = (CSRC / "bitonic.cuh", CSRC / "cluster_sort.cuh")
+HEADERS = (CSRC / "bitonic.cuh", CSRC / "cluster_sort.cuh",
+           CSRC / "range_lut.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")

@@ -289,21 +289,31 @@ def seqroute_level(w: Sequence[torch.Tensor], meta: torch.Tensor,
     reads tiles in order, sorts each in VMEM and flushes full blocks from
     VMEM accumulators to the next W slot, so the writer never overtakes
     the reader.  On the H100, blocks run in no order and a tile (2048
-    rows, 1 MiB a plane) does not fit a block's shared memory.  Design:
-    windows of tiles (``STAGE_ELEMS`` elements a plane) are first copied
-    to a staging buffer, then routed from it, so every W slot written in a
-    window lies in rows already read.  Each element claims its stream
-    position with a shared-memory atomic (per block chunk) after one
-    global atomic per (chunk, range) reserved the chunk's share of its
-    tile's run, so its address is exact and 64-bit.  A block that is not
-    complete at the window's end waits in a per-range, two-parity
-    accumulator (rmax x 2 x BLK a plane) and is flushed in the window that
-    completes it; after the last window the open blocks are padded into
-    their drain slots.  Extra memory is a constant: staging plus
-    accumulators.  Bound on the H100 by one read and one scattered write
-    of every plane of every element (the staging copy adds a read and a
-    write).  CUDA rather than Triton: data movement with table-driven
-    addresses, beside the v4 kernels it works with.
+    rows, 1 MiB a plane) does not fit a block's shared memory.  Bound on
+    the H100 by one read and one write of every plane of every element
+    (7.7 ms at 2^30 pairs, 3 planes), plus the staging copy's read and
+    write.  Design: windows of tiles (``STAGE_ELEMS`` elements a plane)
+    are first copied to a staging buffer, then routed from it, so every W
+    slot written in a window lies in rows already read (the kernel's
+    comment says why); the staging is kept because a slot that a tile's
+    run completes may lie in rows of a later tile of the same window, and
+    smaller windows cost more in accumulator flushes and launches than
+    they save in staging.  The route (``route_kernel``) is chunk-ranked as
+    ``route_level``'s
+    range mode: one block of 512 threads per 8,192 staged elements
+    classifies each key once through the range lookup table of
+    ``csrc/range_lut.cuh``, ranks it in its warp's count table, stages
+    the chunk in shared memory by range and claims each (chunk, range)
+    segment's share of its tile's run with one global atomic; consecutive
+    threads then store a segment's consecutive stream positions, which
+    cross at most one block boundary: whole sectors into the block's W
+    slot when the block completes by the window's end, else into the
+    range's two-parity accumulator (rmax x 2 x BLK a plane), which is
+    flushed in the window that completes the block.  After the last
+    window the open blocks are padded into their drain slots.  Extra
+    memory is a constant: staging plus accumulators.  CUDA rather than
+    Triton: data movement with table-driven addresses and warp-level
+    ranking, beside the v4 kernels it shares the lookup table with.
     """
     w = _check_w("w", w)
     dev = w[0].device

@@ -7,8 +7,10 @@ Each public function dispatches on the device of its input tensors: a
 CPU tensor runs the plain PyTorch version (``*_ref``), a CUDA tensor
 launches the hand-written kernels in ``csrc/pallas_kernels.cu`` and
 raises if that fails.  Nothing falls back from one to the other.  All
-four are CUDA C++ rather than Triton: they share the bitonic network,
-the launcher and the build of the v4 terminal kernel.
+four are CUDA C++ rather than Triton: they share the cluster launcher,
+the bitonic network of ``ragged_sort`` (whose merges also join the runs
+of a tile too large for one ``tile_sort`` cluster) and the build of the
+v4 terminal kernel.
 
 Arenas are (rows, 128) int32 planes: keys in the sign-biased encoding
 (``bitonic.bias_u32``), and optionally one value plane; tuples order
@@ -52,6 +54,12 @@ TABLE_ENTRIES = 8 * LANES
 # compact_span and COMPACT_GROUP)
 COMPACT_SPAN = {1: 32768, 2: 4096}
 COMPACT_GROUP = 32768
+
+# the CUDA tile_sort sorts a tile of up to TILE_SORT_RUN[planes] tuples in
+# one pass, in the shared memory of one cluster of at most 8 CTAs of 2^15
+# keys or 2^14 pairs (csrc/pallas_kernels.cu's rs_cap_log); a larger tile
+# is sorted as runs of that size, which merge launches then join
+TILE_SORT_RUN = {1: 1 << 18, 2: 1 << 17}
 
 # launches of each kernel since the last reset (plain versions not counted)
 LAUNCHES = {"tile_sort": 0, "distribute": 0, "ragged_sort": 0,
@@ -332,16 +340,35 @@ def tile_sort(keys: torch.Tensor, vals: Optional[torch.Tensor],
 
     Replaces ``pallas_kernels.py:59-170`` (``_tile_sort_exe``).  The TPU
     sorts a tile in VMEM with ``bitonic.bitonic_sort`` and counts each
-    bound with a full-tile reduction (R x tile compares); the port sorts
-    with the same order and counts by an upper-bound search in the sorted
-    tile (R x log2(tile) reads).  On the H100 a tile of 2^15 pairs (256
-    KiB) does not fit a block's shared memory, so the sort is bound by
-    its passes over the tile; the count costs little.  Design: a bitonic
-    network in launches over every tile at once (``sort_regions``): one
-    block sorts each shared-memory tile (16K keys or 8K pairs), then each
-    step with a partner distance of a tile or more is one launch over all
-    pairs in device memory; a last kernel gives each (tile, bound) a
-    thread for its search.
+    bound with a full-tile reduction (R x tile compares).  On the H100 the
+    bound is one read and one write of every tile (0.64 ms for 2^28 keys,
+    1.28 ms for pairs), if the sort keeps up on chip.  A tile of 2^15 pairs
+    (256 KiB) fills no one CTA's shared memory, and a bitonic network over
+    device memory made six passes over it.  Design (``tile_radix_kernel``):
+    one thread-block cluster per tile (a CTA of 1024 threads holds 2^15
+    keys or 2^14 pairs, so one CTA keys-only and two with pairs at the
+    default 2^15-element tile, and 1-8 CTAs for any tile up to
+    ``TILE_SORT_RUN`` tuples, the largest single-pass tile: 2^18 keys, 2^17
+    pairs) keeps the tile in shared memory from one read to one write and
+    sorts it there by a least-significant-digit radix sort: 8-bit digits
+    over only the bits that vary among the tile's live tuples (the OR of x
+    ^ x[0]: 4 passes for uniform u32 keys, fewer where a level's tile
+    shares its top bits), first the value's, then the key's.  Every pass
+    but the first is stable: it is ranked row by row through per-(warp,
+    digit) peer masks, the first (whose input order does not matter) by one
+    shared atomic a tuple; tuples go to the CTA that holds their new
+    position, through distributed shared memory between CTAs, a pair as one
+    8-byte word.  The slack past ``data_elems[t]`` is not read, ranked or
+    sorted: it is written as SENT after the live tuples.  Each bound is
+    then counted by a binary search on the sorted tile while it is still on
+    chip.  A larger tile is sorted as runs of ``TILE_SORT_RUN`` tuples
+    (their counts added into a zeroed table), which the bitonic merges of
+    ``ragged_sort`` join (``global_step_kernel`` and a cluster launch in
+    merge mode).  What bounds it on the card is the ranking and the scatter
+    through shared memory, not device memory.  CUDA rather than Triton: the
+    passes live in one cluster's shared memory between cluster barriers,
+    with warp-level ranking and stores into other CTAs' shared memory,
+    which Triton's block model does not express.
     """
     dev = _check_arena("tile_sort", keys, vals)
     _tables(dev, bounds=bounds, data_elems=data_elems)
@@ -357,12 +384,15 @@ def tile_sort(keys: torch.Tensor, vals: Optional[torch.Tensor],
     if dev.type == "cpu":
         return tile_sort_ref(keys, vals, bounds, data_elems, tile_rows)
     r = bounds.shape[1]
-    cnt = torch.empty((ntiles, r), dtype=torch.int32, device=dev)
+    te = tile_rows * LANES
+    nplanes = len(_planes(keys, vals))
+    cnt = (torch.zeros if te > TILE_SORT_RUN[nplanes] else torch.empty)(
+        (ntiles, r), dtype=torch.int32, device=dev)
     bounds, data_elems = _on(dev, bounds, data_elems)
     if ntiles:
         _launch("tile_sort", "kv1_tile_sort", dev, _p(keys), _vp(vals),
-                _p(bounds), _p(data_elems), _p(cnt), ntiles,
-                tile_rows * LANES, r, len(_planes(keys, vals)))
+                _p(bounds), _p(data_elems), _p(cnt), ntiles, te, r,
+                nplanes)
     return keys, vals, cnt
 
 

@@ -545,14 +545,39 @@ def _replay_v5(wrappers, calls):
 def test_v5_kernels_match_plain_versions(cuda, nvals):
     """A tiny-geometry v5 sort with 0, 1 and 3 payload planes: every
     seqroute_level and block_permute launch equal to its plain version,
-    and the sort equal to numpy's lexicographic order."""
+    and the sort equal to numpy's lexicographic order.  Then seqroute at
+    its edges: tiles of four route chunks (runs from several chunks, runs
+    that straddle a block boundary), rmax 32 with 8 distinct keys (empty
+    ranges) in windows of one tile, rmax 128 in windows of two; 3 planes
+    beside the 2-plane case."""
     n = 5 * kv5.BLK + 321
-    planes = [_keys(n, 20 + p) for p in range(1 + nvals)]
+    _check_v5_sort(cuda, [_keys(n, 20 + p) for p in range(1 + nvals)],
+                   V5_TINY, every_kernel=True)
+    n = 9 * kv5.BLK + 77
+    for nv in (1, 2) if nvals == 1 else (nvals,):
+        for rmax, dist, window in ((32, "dup8", 1), (128, "uniform", 2)):
+            planes = [_keys(n, 30 + q, dist if q == 0 else "uniform")
+                      for q in range(1 + nv)]
+            cfg = dict(V5_TINY, v5_pitch_rows=256, v3_rmax=rmax)
+            stage = kv5.STAGE_ELEMS
+            kv5.STAGE_ELEMS = window * 256 * LANES
+            try:
+                _check_v5_sort(cuda, planes, cfg)
+            finally:
+                kv5.STAGE_ELEMS = stage
+
+
+def _check_v5_sort(cuda, planes, cfg, every_kernel=False):
+    """sort_v5 of the numpy uint32 planes with every v5 launch replayed
+    against its plain version (``_replay_v5``); the sort equal to numpy's
+    lexicographic order."""
     t = [torch.from_numpy(x.view(np.int32)).to(cuda) for x in planes]
     out = []
     wrappers, calls = _record_v5(lambda: out.append(engine_v5.sort_v5(
-        t[0], tuple(t[1:]), SortConfig(**V5_TINY))))
-    assert {c[0] for c in calls} == set(wrappers)
+        t[0], tuple(t[1:]), SortConfig(**cfg))))
+    names = {c[0] for c in calls}
+    assert names == set(wrappers) if every_kernel \
+        else "seqroute_level" in names, names
     _replay_v5(wrappers, calls)
     order = np.lexsort(planes[::-1])
     keys, vals = out[0]
@@ -688,11 +713,74 @@ def _v1_replay(fn):
 def test_v1_kernels_match_plain_versions(cuda):
     """Every v1 kernel call of a sort at the reference tests' tiny
     geometry and at the default one equals its plain version on the same
-    CUDA inputs; the sort equals numpy.  distribute's edge cases too."""
+    CUDA inputs; the sort equals numpy.  distribute's and tile_sort's
+    edge cases too."""
     for cfg in (V1_TINY, SortConfig(engine="pallas")):
         for kind in ("uniform", "dup8", "maxheavy", "pairs"):
             _check_v1_sort(cuda, kind, cfg)
     _check_distribute_edges(cuda)
+    _check_tile_sort_edges(cuda)
+
+
+def _check_tile_sort_edges(cuda):
+    """tile_sort against its plain version, keys and pairs: data counts
+    0, 1, 129 and full in one launch; all-equal keys; equal keys with
+    distinct vals (ties broken by val); real keys equal to SENT beside
+    the slack; a tile where a single bit varies; tiles of several CTAs'
+    tuples; and tiles larger than the single-pass limit (2^17 pairs at
+    1,029 rows, 2^18 keys at 2,053: runs joined by merges), sorted tiles
+    and counts bit for bit."""
+    rng = np.random.default_rng(40)
+    sent = np.int32(2**31 - 1)
+
+    def tiles(tile_rows, ntiles, kind):
+        n = tile_rows * LANES * ntiles
+        k = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+        v = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+        if kind == "equal":
+            k[:] = 77
+        elif kind == "ties":
+            k = rng.integers(-3, 3, n).astype(np.int32)
+        elif kind == "sent":
+            k[rng.random(n) < 0.4] = sent
+            v[rng.random(n) < 0.4] = sent
+        elif kind == "onebit":
+            k = np.where(rng.random(n) < 0.5, 0x5000, 0x5000 | (1 << 22)) \
+                .astype(np.int32)
+            v[:] = 9
+        return k, v
+
+    cases = [(256, "uniform", [0, 1, 129, 256 * LANES]),
+             (256, "equal", [256 * LANES, 1000]),
+             (256, "ties", [256 * LANES, 30000]),
+             (256, "sent", [256 * LANES, 20000]),
+             (256, "onebit", [256 * LANES, 5]),
+             (384, "uniform", [384 * LANES, 40000]),
+             (1029, "uniform", [1029 * LANES, 1029 * LANES - 300]),
+             (1029, "ties", [1029 * LANES, 70000]),
+             (2053, "sent", [2053 * LANES - 5, 200000])]
+    for tile_rows, kind, data in cases:
+        k, v = tiles(tile_rows, len(data), kind)
+        b = np.sort(rng.integers(-2**31, 2**31, (len(data), 6),
+                                 dtype=np.int64), 1).astype(np.int32)
+        b[:, 0] = np.int32(-2**31)
+        b[:, 1] = k[0]
+        b[:, -1] = sent
+        for pairs in (False, True):
+            args = [torch.from_numpy(x).view(-1, LANES).to(cuda)
+                    for x in (k, v)]
+            if not pairs:
+                args[1] = None
+            tables = (torch.from_numpy(b).to(cuda),
+                      torch.tensor(data, dtype=torch.int32, device=cuda))
+            got = pk.tile_sort(_clone(args[0]), _clone(args[1]), *tables,
+                               tile_rows)
+            want = pk.tile_sort_ref(_clone(args[0]), _clone(args[1]),
+                                    *tables, tile_rows)
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                assert g is None or torch.equal(g, w), \
+                    (tile_rows, kind, pairs)
 
 
 def _check_v1_sort(cuda, kind, cfg):

@@ -16,6 +16,9 @@ Only the defined rows of an arena are compared
 (``pallas_kernels.defined_elems``); comparisons are exact.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -116,7 +119,17 @@ def test_bitonic_sort_and_bias_match_jax():
 
 def test_tile_sort_matches_jax():
     """Sorted tiles (slack tiles masked to SENT) and cnt, every column,
-    keys and pairs, spread and duplicate keys."""
+    keys and pairs, spread and duplicate keys.  The wrapper's single-pass
+    limits (it zeroes the counts of a tile sorted in several runs) are
+    the CUDA source's: 8 CTAs of 1024 threads, 32 keys or 16 pairs a
+    thread."""
+    src = (Path(tpk.__file__).parents[1] / "csrc" /
+           "pallas_kernels.cu").read_text()
+    c = {k: int(v) for k, v in re.findall(
+        r"constexpr int (RS_THREADS|RS_TUPLES|RS_CLOG_MAX) = (\d+);", src)}
+    for planes in (1, 2):
+        assert tpk.TILE_SORT_RUN[planes] == (
+            c["RS_THREADS"] * c["RS_TUPLES"] // planes << c["RS_CLOG_MAX"])
     ntiles = 5
     data = np.array([1024, 700, 0, 1024, 129], np.int32)
     for pairs in PAIRS:
